@@ -1,0 +1,375 @@
+"""The MPM substep (port of mpmavatar_tpu/core/stepping.py).
+
+Phase order, as in the JAX package:
+  stress -> P2G -> grid normalize+gravity(+damping) -> grid BCs ->
+  G2P(vertices/traditional) -> G2P(elements).
+
+On CUDA tensors ``p2g2p`` runs K1 (cloth stress) -> K2 (P2G) -> K5 (grid
+pipeline) -> K3 (G2P), the kernels under ops/csrc; it takes the unfused
+``grid_update`` + ``apply_grid_bc`` only where the JAX package does, for
+BCs outside ``grid_pipeline.supported_bcs`` (CUT surfaces, cuboids, grid
+masks).  On CPU tensors the same calls run each kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import grid_pipeline as _gp
+from ..ops import stress as _stress
+from ..ops import transfer as _transfer
+from . import constitutive, linalg
+from .colliders import (CUT, STICKY, SLIP, BoundingBoxCollider,
+                        ColliderSet, CuboidCollider, GridMaskCollider,
+                        RotationVelocityModifier, SurfaceCollider)
+from .types import MPMModel, MPMState, MPMStaticConfig
+
+NEXT_SLICE_K4 = (
+    "the body-mesh collider and the particle mover need K4, the collider/"
+    "mover splat (mpmavatar_tpu/ops/pallas_transfer.py:561 "
+    "splat_columns_fused), which the port does not have yet; it comes "
+    "with the next slice")
+NEEDS_K8 = (
+    "sand (material=2) with traditional particles needs K8, the fused sand "
+    "stress kernel (mpmavatar_tpu/ops/pallas_stress.py:378 _sand_pallas), "
+    "which the port does not have yet")
+
+
+def compute_stress(cfg: MPMStaticConfig, state: MPMState, model: MPMModel,
+                   dt: float):
+    """Return-map + stress for all non-vertex particles.  Returns
+    (new_d (E,3,3), new_F (T,3,3), new_yield_stress (P,),
+    stress (E+T,3,3), vertex_force (V,3)).  The element block goes
+    through K1 (``ops.stress.cloth_stress``)."""
+    E, T, V = cfg.n_elements, cfg.n_traditional, cfg.n_vertices
+    x = state.x
+    dtype, dev = x.dtype, x.device
+    new_ys = state.yield_stress
+
+    vertex_force = torch.zeros((V, 3), dtype=dtype, device=dev)
+    if E > 0:
+        sel_e = (state.selection[:E] == 0).to(dtype)
+        new_d, stress_e, f1, f2, f3 = _stress.cloth_stress(
+            state.d, state.R_inv, state.vol[:E], sel_e, model.mu[:E],
+            model.lam[:E], model.gamma[:E], model.kappa[:E],
+            model.friction_coeff)
+        faces = state.faces.long()
+        vertex_force.index_add_(0, faces[:, 0], f1)
+        vertex_force.index_add_(0, faces[:, 1], f2)
+        vertex_force.index_add_(0, faces[:, 2], f3)
+    else:
+        new_d = state.d
+        stress_e = torch.zeros((0, 3, 3), dtype=dtype, device=dev)
+
+    if T > 0:
+        if cfg.material == 2 and x.is_cuda:
+            raise NotImplementedError(NEEDS_K8)
+        f_new, new_ys, stress_t = _traditional_stress(cfg, state, model, dt)
+    else:
+        f_new = state.F
+        stress_t = torch.zeros((0, 3, 3), dtype=dtype, device=dev)
+
+    stress = torch.cat([stress_e, stress_t], dim=0)
+    return new_d, f_new, new_ys, stress, vertex_force
+
+
+def _traditional_stress(cfg, state, model, dt):
+    """Return map + Kirchhoff stress of the traditional block, plain
+    PyTorch for every material (XLA, not Pallas, in the JAX package)."""
+    E, T = cfg.n_elements, cfg.n_traditional
+    sl = slice(E, E + T)
+    mu, lam = model.mu[sl], model.lam[sl]
+    ys = state.yield_stress[sl]
+    f_trial = state.F_trial
+    mat = cfg.material
+    ys_new = ys
+    if mat == 1:      # metal
+        f_new, ys_new = constitutive.von_mises_return_mapping(
+            f_trial, mu, lam, ys, model.xi, cfg.hardening)
+    elif mat == 2:    # sand
+        f_new = constitutive.sand_return_mapping(f_trial, mu, lam,
+                                                 model.alpha)
+    elif mat == 3:    # foam / viscoplastic
+        f_new = constitutive.viscoplasticity_return_mapping_stvk(
+            f_trial, mu, ys, model.plastic_viscosity, dt)
+    elif mat == 5:    # plasticine (von Mises + damage)
+        mu = torch.where(ys > 0, mu, 0.0)
+        lam = torch.where(ys > 0, lam, 0.0)
+        f_new, ys_new, mu, lam = \
+            constitutive.von_mises_return_mapping_with_damage(
+                f_trial, mu, lam, ys, model.softening, model.xi,
+                cfg.hardening)
+    else:             # elastic
+        f_new = f_trial
+
+    sel_t = state.selection[sl] == 0
+    f_new = torch.where(sel_t[:, None, None], f_new, state.F)
+    new_ys = state.yield_stress.clone()
+    new_ys[sl] = torch.where(sel_t, ys_new, ys)
+
+    j = linalg.det3(f_new)
+    u, sig, v = linalg.svd3(f_new)
+    if mat in (1, 3):
+        st = constitutive.kirchoff_stress_stvk(f_new, u, v, sig, mu, lam)
+    elif mat == 2:
+        st = constitutive.kirchoff_stress_drucker_prager(f_new, u, v, sig,
+                                                         mu, lam)
+    elif mat == 6:
+        st = constitutive.kirchoff_stress_neo_hookean(f_new, u, v, j, sig,
+                                                      mu, lam)
+    else:
+        st = constitutive.kirchoff_stress_fcr(f_new, u, v, j, mu, lam)
+    st = 0.5 * (st + st.transpose(-1, -2))
+    return f_new, new_ys, torch.where(sel_t[:, None, None], st, 0.0)
+
+
+def p2g(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, stress,
+        vertex_force, dt: float):
+    """APIC particle-to-grid scatter through K2 (``ops.transfer.p2g``).
+    ``stress`` is compute_stress's raw (E+T,3,3) stress; this applies the
+    RPIC mix, vol (traditional) and dt.  Returns (grid_v_in (G^3,3),
+    grid_m (G^3,))."""
+    E = cfg.n_elements
+    dtype = state.x.dtype
+    c = state.C
+    rd = model.rpic_damping
+    c_eff = (1.0 - rd) * c + rd / 2.0 * (c - c.transpose(-1, -2))
+    c_eff = torch.where(rd < -0.001, 0.0, c_eff)
+    sel = (state.selection == 0).to(dtype)
+    stress_eff = torch.cat([stress[:E],
+                            state.vol[E:cfg.n_no_vertices, None, None]
+                            * stress[E:]], dim=0)
+    return _transfer.p2g(state.x, state.v, c_eff, state.mass, sel,
+                         dt * stress_eff, dt * vertex_force, cfg.n_grid,
+                         cfg.inv_dx, cfg.dx)
+
+
+def grid_update(cfg: MPMStaticConfig, model: MPMModel, grid_v_in, grid_m,
+                dt: float):
+    """Momentum -> velocity, gravity, damping (unfused path)."""
+    active = grid_m > 1e-15
+    v_out = torch.where(active[:, None],
+                        grid_v_in / torch.clamp_min(grid_m, 1e-15)[:, None]
+                        + dt * model.gravity[None, :], 0.0)
+    scale = model.grid_v_damping_scale
+    return torch.where(scale < 1.0, v_out * scale, v_out)
+
+
+def _grid_coords(cfg: MPMStaticConfig, dtype, device):
+    g = cfg.n_grid
+    ar = torch.arange(g, device=device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                      dim=-1).reshape(-1, 3)
+    return idx, idx.to(dtype) * cfg.dx
+
+
+def apply_grid_bc(cfg: MPMStaticConfig, col, grid_v_out, time: float,
+                  dt: float):
+    """Apply one grid-level BC (unfused path), dispatched on its type."""
+    idx, pos = _grid_coords(cfg, grid_v_out.dtype, grid_v_out.device)
+    if isinstance(col, SurfaceCollider):
+        active = (time >= col.start_time) & (time < col.end_time)
+        dotp = torch.sum((pos - col.point[None, :]) * col.normal[None, :],
+                         dim=-1)
+        inside = dotp < 0.0
+        if col.surface_type == STICKY:
+            new_v = torch.zeros_like(grid_v_out)
+        elif col.surface_type == CUT:
+            z = pos[:, 2]
+            band = (z >= 0.4) & (z <= 0.53)
+            damped = torch.stack([grid_v_out[:, 0],
+                                  torch.zeros_like(grid_v_out[:, 1]),
+                                  grid_v_out[:, 2]], dim=-1) * 0.3
+            new_v = torch.where(band[:, None], damped, 0.0)
+        else:
+            v = grid_v_out
+            nc = torch.sum(v * col.normal[None, :], dim=-1)
+            if col.surface_type == SLIP:
+                v2 = v - nc[:, None] * col.normal[None, :]
+            else:
+                v2 = v - torch.clamp_max(nc, 0.0)[:, None] \
+                    * col.normal[None, :]
+            vlen = linalg.safe_norm(v2)
+            fric = torch.clamp_min(vlen + nc * col.friction, 0.0)
+            f_act = (nc < 0.0) & (vlen > 1e-20)
+            vlen_safe = torch.where(f_act, vlen, 1.0)
+            new_v = torch.where(f_act[:, None],
+                                (fric / vlen_safe)[:, None] * v2, v2)
+        return torch.where((active & inside)[:, None], new_v, grid_v_out)
+
+    if isinstance(col, CuboidCollider):
+        active = (time >= col.start_time) & (time < col.end_time)
+        t_active = torch.clamp(torch.as_tensor(time, dtype=pos.dtype,
+                                               device=pos.device),
+                               col.start_time, col.end_time) \
+            - col.start_time
+        point = col.point + t_active * col.velocity
+        inside = torch.all(torch.abs(pos - point[None, :])
+                           < col.size[None, :], dim=-1)
+        out = torch.where((active & inside)[:, None],
+                          col.velocity.expand_as(grid_v_out), grid_v_out)
+        if col.reset == 1:
+            resetting = (~active) & (time < col.end_time + 15.0 * dt)
+            out = torch.where(resetting, torch.zeros_like(out), out)
+        return out
+
+    if isinstance(col, BoundingBoxCollider):
+        active = (time >= col.start_time) & (time < col.end_time)
+        pad, g = col.padding, cfg.n_grid
+        cols = []
+        for a in range(3):
+            va = grid_v_out[:, a]
+            low = (idx[:, a] < pad) & (va < 0)
+            high = (idx[:, a] >= g - pad) & (va > 0)
+            cols.append(torch.where(active & (low | high), 0.0, va))
+        return torch.stack(cols, dim=-1)
+
+    if isinstance(col, GridMaskCollider):
+        masked = col.mask.reshape(-1) >= 1
+        return torch.where(masked[:, None], 0.0, grid_v_out)
+
+    raise TypeError(f"unknown grid BC {type(col)}")
+
+
+def gather_quantities(cfg: MPMStaticConfig, state: MPMState, grid_v_out):
+    """27-stencil gather through K3 (``ops.transfer.g2p``): per-particle
+    velocity, APIC C and velocity gradient."""
+    return _transfer.g2p(state.x, grid_v_out, cfg.n_grid, cfg.inv_dx)
+
+
+def g2p(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, grid_v_out,
+        dt: float, gathered=None):
+    """Grid-to-particle gather + advection: vertex/traditional particles
+    update first, then element particles read the *updated* vertex
+    positions/velocities.  Returns (x, v, C, F_trial, d)."""
+    E, T = cfg.n_elements, cfg.n_traditional
+    P, dx = cfg.n_particles, cfg.dx
+    if gathered is None:
+        gathered = gather_quantities(cfg, state, grid_v_out)
+    new_v, new_c, grad_v = gathered
+
+    sel = state.selection == 0
+    new_x = torch.clamp(state.x + dt * new_v, dx * 2.0,
+                        cfg.grid_lim - dx * 2.0)
+    nonelem = torch.arange(P, device=sel.device) >= E
+    upd = (sel & nonelem)
+    x1 = torch.where(upd[:, None], new_x, state.x)
+    v1 = torch.where(upd[:, None], new_v, state.v)
+    c1 = torch.where(upd[:, None, None], new_c, state.C)
+
+    if T > 0:
+        gv_t = grad_v[E:E + T]
+        f_new = state.F + dt * (gv_t @ state.F)
+        f_trial = torch.where(sel[E:E + T, None, None], f_new,
+                              state.F_trial)
+    else:
+        f_trial = state.F_trial
+
+    if E > 0:
+        fi = state.faces.long() + (E + T)
+        pa, pb, pc = x1[fi[:, 0]], x1[fi[:, 1]], x1[fi[:, 2]]
+        ex = (pa + pb + pc) / 3.0
+        ev = (v1[fi[:, 0]] + v1[fi[:, 1]] + v1[fi[:, 2]]) / 3.0
+        d3_old = state.d[:, :, 2]
+        # d3 += dt grad_v d3 as an elementwise product and sum: as a
+        # batched (E,3,3)@(E,3) product it runs as a slow gemv on CUDA
+        d3 = d3_old + dt * (grad_v[:E] * d3_old[:, None, :]).sum(-1)
+        new_d = torch.stack([pb - pa, pc - pa, d3], dim=-1)
+        sel_e = sel[:E]
+        x1 = torch.cat([torch.where(sel_e[:, None], ex, state.x[:E]),
+                        x1[E:]], dim=0)
+        v1 = torch.cat([torch.where(sel_e[:, None], ev, state.v[:E]),
+                        v1[E:]], dim=0)
+        c1 = torch.cat([torch.where(sel_e[:, None, None], new_c[:E],
+                                    state.C[:E]), c1[E:]], dim=0)
+        d_out = torch.where(sel_e[:, None, None], new_d, state.d)
+    else:
+        d_out = state.d
+    return x1, v1, c1, f_trial, d_out
+
+
+def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
+                      time: float):
+    """Particle impulses and velocity modifiers, in registration order."""
+    v = state.v
+    for imp in colliders.impulses:
+        active = (time >= imp.start_time) & (time < imp.end_time)
+        if imp.scale_by_mass:
+            delta = imp.force[None, :] / state.mass[:, None] * dt
+        else:
+            delta = (imp.force[None, :] * dt).expand_as(v)
+        v = torch.where((active & (imp.mask >= 1))[:, None], v + delta, v)
+    for mod in colliders.velocity_modifiers:
+        active = (time >= mod.start_time) & (time < mod.end_time)
+        if isinstance(mod, RotationVelocityModifier):
+            offset = state.x - mod.point[None, :]
+            axial = torch.sum(offset * mod.normal[None, :], -1)
+            radial = offset - axial[:, None] * mod.normal[None, :]
+            hd = torch.sqrt(torch.sum(radial * radial, -1) + 1e-20)
+            cosine = torch.sum(offset * mod.horizontal_axis_1[None, :],
+                               -1) / hd
+            theta = torch.arccos(torch.clamp(cosine, -1.0, 1.0))
+            theta = torch.where(
+                torch.sum(offset * mod.horizontal_axis_2[None, :], -1) > 0,
+                theta, -theta)
+            v_rot = (-hd * torch.sin(theta) * mod.rotation_scale)[:, None] \
+                * mod.horizontal_axis_1[None, :] \
+                + (hd * torch.cos(theta) * mod.rotation_scale)[:, None] \
+                * mod.horizontal_axis_2[None, :] \
+                + mod.translation_scale * mod.normal[None, :]
+            v = torch.where((active & (mod.mask == 1))[:, None], v_rot, v)
+        else:
+            v = torch.where((active & (mod.mask == 1))[:, None],
+                            mod.velocity.expand_as(v), v)
+    return v
+
+
+def make_grid_stage(cfg: MPMStaticConfig, colliders: ColliderSet):
+    """The substep's grid update and grid BCs, bound once per collider set:
+    fn(grid_v_in, grid_m, model, time, dt) -> grid_v_out.  K5 (the fused
+    grid pipeline) when every BC is kernel-supported, else the unfused
+    ``grid_update`` + ``apply_grid_bc``, as in the JAX package."""
+    post = colliders.grid_post
+    if not _gp.supported_bcs(post):
+        def unfused(grid_v_in, grid_m, model, time, dt):
+            grid_v_out = grid_update(cfg, model, grid_v_in, grid_m, dt)
+            for col in post:
+                grid_v_out = apply_grid_bc(cfg, col, grid_v_out, time, dt)
+            return grid_v_out
+        return unfused
+    pipeline = _gp.make_grid_pipeline(cfg, post, has_mesh=False,
+                                      has_mover=False)
+    surf = _gp.pack_surface_params(post)
+
+    def fused(grid_v_in, grid_m, model, time, dt):
+        return pipeline(grid_v_in, grid_m, None, None, None, None,
+                        model.gravity, model.grid_v_damping_scale, None,
+                        time, dt, surf)
+    return fused
+
+
+def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
+          model: MPMModel, dt: float, time: float,
+          grid_stage=None) -> MPMState:
+    """One full MPM substep; ``dt`` and ``time`` are Python floats.
+    ``grid_stage`` is ``make_grid_stage(cfg, colliders)``, built here when
+    the caller has none."""
+    if colliders.mesh_colliders or colliders.use_particle_mover:
+        raise NotImplementedError(NEXT_SLICE_K4)
+    if grid_stage is None:
+        grid_stage = make_grid_stage(cfg, colliders)
+    dt, time = float(dt), float(time)
+    state = dataclasses.replace(
+        state, v=_pre_p2g_velocity(colliders, state, dt, time))
+
+    new_d, new_f, new_ys, stress, vertex_force = compute_stress(
+        cfg, state, model, dt)
+    state = dataclasses.replace(state, d=new_d, F=new_f,
+                                yield_stress=new_ys)
+    grid_v_in, grid_m = p2g(cfg, state, model, stress, vertex_force, dt)
+    grid_v_out = grid_stage(grid_v_in, grid_m, model, time, dt)
+    x1, v1, c1, f_trial, d1 = g2p(cfg, state, model, grid_v_out, dt)
+    return dataclasses.replace(state, x=x1, v=v1, C=c1, F_trial=f_trial,
+                               d=d1)

@@ -1,0 +1,232 @@
+"""Solver orchestration: collider registry and the frame loop (port of
+mpmavatar_tpu/sim/solver.py).
+
+The TPU solver's column-bin, halo, z-window, bf16 and rebinning knobs and
+their cap sizing (``adapt_row_cap``, ``calibrate_caps``,
+``adapt_mesh_cap``, ``check_overflow``) are not ported: they exist to feed
+the TPU's matrix unit without atomics inside its on-chip memory, and the
+port's kernels work on the dense grid with atomics, so there is nothing
+to size.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import stepping
+from ..core.colliders import (BoundingBoxCollider, ColliderSet,
+                              CuboidCollider, GridMaskCollider,
+                              ParticleImpulse, ParticleVelocityModifier,
+                              RotationVelocityModifier, SurfaceCollider,
+                              CUT, FRICTIONAL, SLIP, STICKY)
+from ..core.types import MPMModel, MPMState, MPMStaticConfig
+
+MATERIAL_IDS = {
+    "jelly": 0, "metal": 1, "sand": 2, "foam": 3, "snow": 4,
+    "plasticine": 5, "neo-hookean": 6, "cloth": 7,
+}
+
+
+class MPMSolver:
+    """Owns the static config and the collider set; ``substep`` and
+    ``frame`` advance a state.  Runs on CUDA unless ``device="cpu"``."""
+
+    def __init__(self, cfg: MPMStaticConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.colliders = ColliderSet()
+
+    def _f32(self, value):
+        return torch.as_tensor(np.asarray(value, np.float32),
+                               device=self.device)
+
+    def _i32(self, value):
+        return torch.as_tensor(np.asarray(value, np.int32),
+                               device=self.device)
+
+    @property
+    def colliders(self) -> ColliderSet:
+        return self._colliders
+
+    @colliders.setter
+    def colliders(self, value: ColliderSet):
+        self._colliders = value
+        self._grid_stage = None
+
+    def _replace(self, **kw):
+        self.colliders = dataclasses.replace(self.colliders, **kw)
+
+    def grid_stage(self):
+        """The grid stage of the registered colliders (K5 and its packed
+        surface parameters), built once per collider set."""
+        if self._grid_stage is None:
+            self._grid_stage = stepping.make_grid_stage(self.cfg,
+                                                        self.colliders)
+        return self._grid_stage
+
+    # ------------------------------------------------------------------
+    # registration API
+    # ------------------------------------------------------------------
+    def _add_grid_post(self, col):
+        self._replace(grid_post=self.colliders.grid_post + (col,))
+
+    def add_surface_collider(self, point, normal, surface="sticky",
+                             friction=0.0, start_time=0.0, end_time=999.0):
+        if surface == "sticky" and friction != 0:
+            raise ValueError("friction must be 0 on sticky surfaces.")
+        stype = {"sticky": STICKY, "slip": SLIP, "cut": CUT}.get(
+            surface, FRICTIONAL)
+        n = np.asarray(normal, np.float32)
+        n = n / np.linalg.norm(n)
+        self._add_grid_post(SurfaceCollider(
+            point=self._f32(point), normal=self._f32(n),
+            friction=self._f32(friction), start_time=self._f32(start_time),
+            end_time=self._f32(end_time), surface_type=stype))
+
+    def add_bounding_box(self, start_time=0.0, end_time=999.0):
+        self._add_grid_post(BoundingBoxCollider(
+            start_time=self._f32(start_time), end_time=self._f32(end_time)))
+
+    def set_velocity_on_cuboid(self, point, size, velocity, start_time=0.0,
+                               end_time=999.0, reset=0):
+        self._add_grid_post(CuboidCollider(
+            point=self._f32(point), size=self._f32(size),
+            velocity=self._f32(velocity), start_time=self._f32(start_time),
+            end_time=self._f32(end_time), reset=reset))
+
+    def enforce_grid_velocity_by_mask(self, mask):
+        self._add_grid_post(GridMaskCollider(mask=self._i32(mask)))
+
+    def add_mesh_collider(self, mesh_faces, friction=0.0):
+        raise NotImplementedError(stepping.NEXT_SLICE_K4)
+
+    def add_particle_mover(self):
+        raise NotImplementedError(stepping.NEXT_SLICE_K4)
+
+    def add_impulse_on_particles(self, mask, force, start_time=0.0,
+                                 end_time=999.0, scale_by_mass=True):
+        self._replace(impulses=self.colliders.impulses + (ParticleImpulse(
+            mask=self._i32(mask), force=self._f32(force),
+            start_time=self._f32(start_time), end_time=self._f32(end_time),
+            scale_by_mass=scale_by_mass),))
+
+    def enforce_particle_velocity_by_mask(self, mask, velocity,
+                                          start_time=0.0, end_time=999.0):
+        self._replace(velocity_modifiers=self.colliders.velocity_modifiers
+                      + (ParticleVelocityModifier(
+                          mask=self._i32(mask), velocity=self._f32(velocity),
+                          start_time=self._f32(start_time),
+                          end_time=self._f32(end_time)),))
+
+    def enforce_particle_velocity_translation(self, state, point, size,
+                                              velocity, start_time=0.0,
+                                              end_time=999.0):
+        """Select the particles inside a box once; pin their velocity."""
+        x = state.x.detach().cpu().numpy()
+        inside = np.all(np.abs(x - np.asarray(point)[None])
+                        < np.asarray(size)[None], axis=-1)
+        self.enforce_particle_velocity_by_mask(inside.astype(np.int32),
+                                               velocity, start_time, end_time)
+
+    def enforce_particle_velocity_rotation(self, state, point, normal,
+                                           half_height_and_radius,
+                                           rotation_scale, translation_scale,
+                                           start_time=0.0, end_time=999.0):
+        """Cylinder-region rotation field."""
+        normal = np.asarray(normal, np.float64)
+        normal = normal / np.linalg.norm(normal)
+        h1 = np.array([1.0, 1.0, 1.0])
+        if abs(h1 @ normal) < 0.01:
+            h1 = np.array([0.72, 0.37, -0.67])
+        h1 = h1 - (h1 @ normal) * normal
+        h1 = h1 / np.linalg.norm(h1)
+        h2 = np.cross(h1, normal)
+
+        x = state.x.detach().cpu().numpy()
+        offset = x - np.asarray(point)[None]
+        axial = offset @ normal
+        radial = np.linalg.norm(offset - axial[:, None] * normal[None],
+                                axis=-1)
+        hh, rr = half_height_and_radius
+        mask = (np.abs(axial) < hh) & (radial < rr)
+        self._replace(velocity_modifiers=self.colliders.velocity_modifiers
+                      + (RotationVelocityModifier(
+                          mask=self._i32(mask.astype(np.int32)),
+                          point=self._f32(point), normal=self._f32(normal),
+                          horizontal_axis_1=self._f32(h1),
+                          horizontal_axis_2=self._f32(h2),
+                          rotation_scale=self._f32(rotation_scale),
+                          translation_scale=self._f32(translation_scale),
+                          start_time=self._f32(start_time),
+                          end_time=self._f32(end_time)),))
+
+    def release_particles_sequentially(self, state, normal, start_position,
+                                       end_position, start_time, end_time,
+                                       num_layers=50):
+        """Shrinking pin region releases particles layer by layer along
+        ``normal``."""
+        point = [0.0, 0.0, 0.0]
+        size = [0.0, 0.0, 0.0]
+        axis = -1
+        for i in range(3):
+            if normal[i] == 0:
+                point[i] = 1.0
+                size[i] = 1.0
+            else:
+                axis = i
+                point[i] = end_position
+        half = abs(start_position - end_position) / num_layers
+        end_portion = end_time / num_layers
+        for i in range(num_layers):
+            size[axis] = half * (num_layers - i)
+            self.enforce_particle_velocity_translation(
+                state, point, size, [0.0, 0.0, 0.0],
+                start_time=start_time, end_time=end_portion * (i + 1))
+
+    # ------------------------------------------------------------------
+    # stepping
+    # ------------------------------------------------------------------
+    def substep(self, state: MPMState, model: MPMModel, dt: float,
+                time: float) -> MPMState:
+        return stepping.p2g2p(self.cfg, self.colliders, state, model, dt,
+                              time, self.grid_stage())
+
+    def frame(self, state: MPMState, model: MPMModel, dt: float,
+              num_substeps: int, time0: float):
+        """``num_substeps`` substeps from ``time0``; returns (state, time).
+        Time advances in float32 steps of dt, as in the JAX frame scan."""
+        t = np.float32(time0)
+        dt32 = np.float32(dt)
+        grid_stage = self.grid_stage()
+        for _ in range(num_substeps):
+            state = stepping.p2g2p(self.cfg, self.colliders, state, model,
+                                   float(dt32), float(t), grid_stage)
+            t = np.float32(t + dt32)
+        return state, float(t)
+
+    @staticmethod
+    def check_finite(state: MPMState, context: str = "rollout"):
+        """Raise on the first non-finite state (call at frame
+        boundaries)."""
+        bad = validate_state(state)
+        if bad:
+            raise FloatingPointError(
+                f"non-finite simulation state during {context}: "
+                f"{bad} (field -> bad-value count). The timestep is "
+                "likely unstable for this stiffness/grid — reduce dt "
+                "or raise the substep count.")
+
+
+def validate_state(state: MPMState) -> dict:
+    """Field -> count of non-finite values, for the dynamic fields."""
+    bad = {}
+    for field in ("x", "v", "C", "F", "F_trial", "d"):
+        t = getattr(state, field)
+        n_bad = int(t.numel() - torch.isfinite(t).sum().item())
+        if n_bad:
+            bad[field] = n_bad
+    return bad

@@ -6,22 +6,40 @@ its plain PyTorch version.
 
 Phases (any failure exits nonzero; no phase carries on past its own):
   1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed);
-  2. the main path: the full-width cloth drop (183 x 183 cloth = 99,737
-     particles, 128^3 grid, sticky floor, dt = 1e-4) for 2 frames of 100
-     substeps through MPMSolver.frame, with every launch counter reset
-     just before and read just after; the cloth's fall is held against
-     g dt^2 n(n+1)/2 and every kernel must have launched once per substep;
-     then a torch.profiler breakdown of 20 more substeps;
-  3. each kernel (K1 cloth stress, K2 P2G, K5 grid pipeline, K3 G2P) at
-     the main path's shapes against its plain version on the card; its
-     device time from CUDA-graph replays (and, as eager_ms, back-to-back
-     eager calls), beside its plain version's time and its memory/compute
-     bound;
-  4. 10 substeps on the kernel path against 10 on the plain path (CPU)
-     from the same perturbed state, for a few seeds, beside two sound
-     plain runs an ulp apart and two wrong paths (the return map without
-     its friction scaling; one substep short); the elements that cross
-     the return map's branch point between the paths are counted.
+  2. the paths, each through MPMSolver.frame with every launch counter
+     reset just before it and read just after, each kernel's launches
+     held to its count per substep, and a torch.profiler breakdown of 20
+     more substeps:
+     - the cloth drop (183 x 183 cloth = 99,737 particles, 128^3 grid,
+       sticky floor, dt = 1e-4), 2 frames x 100 substeps; the cloth's
+       fall is held against g dt^2 n(n+1)/2;
+     - path A, the bench's garment substep (sim/bench_scene.py --grid
+       128: the same cloth on the bench's sphere collider with 256 pinned
+       vertices and 128 pinned faces), 2 x 100 substeps; the pinned
+       vertices must not move;
+     - path B, the bench's demo shape (--grid 250 --sand 100000: 199,737
+       particles), 2 x 100 substeps; the sand's fall is held against
+       g dt^2 n(n+1)/2;
+  3. the drape: the cloth drop onto the still body sphere for 3,000
+     substeps; no cloth vertex may end deeper than DRAPE_TOL inside the
+     sphere, beside the same run without the collider (which falls
+     through), and K5's mesh branch must change the velocity of some
+     cells;
+  4. each kernel (K1 cloth stress, K2 P2G, K5 grid pipeline with its mesh
+     and mover fields, K3 G2P, K4 splat, K8 sand stress) at the paths'
+     shapes against its plain version on the card; its device time from
+     CUDA-graph replays (and, as eager_ms, back-to-back eager calls),
+     beside its plain version's time and its memory/compute bound;
+  5. 10 substeps on the kernel path against 10 on the plain path (CPU)
+     from the same perturbed states, for a few seeds:
+     - the cloth drop, beside two sound plain runs an ulp apart and two
+       wrong paths (the return map without its friction scaling; one
+       substep short); the elements that cross the return map's branch
+       point between the paths are counted;
+     - a contact scene (the bench scene cut to a 48 x 48 cloth, 64^3 and
+       3,000 sand particles, the sphere's top under the cloth rising into
+       it), beside two wrong paths (collider friction 0; the mover left
+       out).
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -43,12 +61,27 @@ PEAK_FP32 = 67e12
 
 NX, GRID, DT = 183, 128, 1e-4
 FRAMES, SUBSTEPS = 2, 100
+PROFILE_SUBSTEPS = 20
+GRID_B, SAND_B = 250, 100_000
 COMPARE_SUBSTEPS = 10
 # tolerances: kernel vs plain on identical inputs, as max |a - b| over
 # max |plain| per output (float32, reordered sums and fused multiply-adds;
-# P2G's atomics also reorder the per-cell sums)
+# P2G's and the splat's atomics also reorder the per-cell sums)
 KERNEL_REL_TOL = {"cloth_stress": 1e-4, "p2g": 1e-5, "grid_pipeline": 1e-5,
-                  "g2p": 1e-5}
+                  "g2p": 1e-5, "splat": 1e-5}
+# ... and for the splat at least n_max ulps (2^-23 each) of the largest
+# sum, n_max the most points that reach one cell: a float32 sum of n terms
+# in another (atomic) order differs by up to ~n/2 ulps, and the bench
+# sphere's 96 zero-area pole faces and the thin faces around them pile
+# their centroids into a few cells
+# K8, on the particles whose return-map branch is the same in both: F_new
+# (O(1)) absolutely, the stress relative to mu.  The stress is
+# (2 mu + 3 lam) log s ~ 10 mu log s, and log s of s ~ 1 carries ~1e-7 of
+# rounding; the Jacobi SVD works on F^T F, squaring F's condition number,
+# so small singular values lose more.  The branch tests (delta_gamma > 0,
+# tr > 0) sit on rounding ties where F_trial ~ I (free-falling sand):
+# those particles are counted, not held.
+SAND_F_TOL, SAND_STRESS_TOL_MU = 2e-5, 3e-5
 # kernel path vs plain path over COMPARE_SUBSTEPS substeps, from
 # perturbed states of PATH_SEEDS: x and v at the golden bounds of the JAX
 # package.  d is ill-conditioned on this flat cloth: every element sits
@@ -63,12 +96,26 @@ KERNEL_REL_TOL = {"cloth_stress": 1e-4, "p2g": 1e-5, "grid_pipeline": 1e-5,
 PATH_ATOL = {"x": 2e-5, "v": 1e-3}
 D_TOL = 4.5e-4
 PATH_SEEDS = (0, 1, 2)
-# fall of the vertex mean against g dt^2 n(n+1)/2 (flat cloth in free
-# fall: internal forces cancel)
+# fall of the vertex (or sand) mean against g dt^2 n(n+1)/2 (free fall:
+# internal forces cancel)
 FALL_REL_TOL = 0.02
+# path A: the pinned vertices' whole stencil is covered by their own
+# zero-velocity mover splat
+PIN_TOL = 1e-6
+# the drape: 3,000 substeps (0.3 s; the cloth reaches the sphere's top at
+# 1.1 after ~0.2 s); the deepest cloth vertex inside the sphere, at most
+# one cell (dx = 2/128)
+DRAPE_SUBSTEPS = 3000
+DRAPE_TOL = 2.0 / GRID
+# the contact scene: the bench scene cut down, the sphere's top 0.02 under
+# the cloth (y = 1.3; under one cell, dx = 2/64) and rising at 0.5 m/s
+CONTACT = dict(grid=64, sand=3000, nx=48, body_center=(1.0, 1.03, 1.0),
+               body_r=0.25)
+CONTACT_MESH_V = (0.0, 0.5, 0.0)
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
+CSRC = "mpmavatar_tpu_torch/ops/csrc/"
 
 
 def nvidia_smi_line() -> str:
@@ -116,7 +163,7 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return event_ms(graph.replay, reps, inner, warmup=2)
 
 
-def profile_substeps(solver, state, model, t, n: int):
+def profile_substeps(solver, state, model, t, n: int, scene):
     """torch.profiler over ``n`` substeps: (device-busy seconds, profiled
     wall seconds, [(kernel name, device us, launches)] by device time).
     Only the device-side entries are summed: an operator's entry repeats
@@ -128,7 +175,7 @@ def profile_substeps(solver, state, model, t, n: int):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.frame(state, model, DT, n, t)
+        solver.frame(state, model, DT, n, t, **scene)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -162,6 +209,65 @@ def bound(n_bytes: float, n_flops: float):
     return 1e3 * t_ops, "operations"
 
 
+def drive(name, solver, state, model, scene, frames, substeps, expect):
+    """One path: ``frames`` x ``substeps`` substeps with the launch
+    counters reset just before and read just after; each kernel in
+    ``expect`` (name -> launches per substep) must have launched that
+    many times and no other kernel at all.  Then a profile of
+    PROFILE_SUBSTEPS more.  Returns (final state, time, launches, steady
+    ms/substep)."""
+    import torch
+    from mpmavatar_tpu_torch.ops import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t, frame_s = 0.0, []
+    for _ in range(frames):
+        t_f = time.perf_counter()
+        state, t = solver.frame(state, model, DT, substeps, t, **scene)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t_f)
+    launches = _build.launch_counts()
+    solver.check_finite(state, name)
+    n_sub = frames * substeps
+    want = {k: per * n_sub for k, per in expect.items()}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    ms_sub = 1e3 * frame_s[-1] / substeps
+    print(f"{name}: launches {launches} in {n_sub} substeps; frame wall "
+          f"times {[round(s, 4) for s in frame_s]} s; steady frame "
+          f"{ms_sub:.4f} ms/substep = {1e3 / ms_sub:.1f} substeps/s")
+
+    busy_s, prof_wall, rows = profile_substeps(solver, state, model, t,
+                                               PROFILE_SUBSTEPS, scene)
+    n = PROFILE_SUBSTEPS
+    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                      for key, us, calls in rows)
+    (OUT / f"chip_smoke_profile_{name}.txt").write_text(table + "\n")
+    if not rows:
+        print(f"{name} profile: the profiler recorded no device time; "
+              "device busy share not measured")
+    else:
+        idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
+        print(f"{name} profile of {n} substeps: device busy "
+              f"{1e3 * busy_s / n:.4f} ms/substep in "
+              f"{sum(r[2] for r in rows) / n:.1f} kernels/substep, "
+              f"{1e3 * prof_wall / n:.4f} ms/substep profiled wall; "
+              f"against the unprofiled steady frame the device is idle "
+              f"{idle:.1f}% of the time")
+    for key, us, calls in rows[:12]:
+        print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
+              f"{key[:90]}")
+    return state, t, launches, ms_sub
+
+
+def sphere_depth(x, center, r):
+    """Deepest point of ``x`` (N, 3) inside the sphere (negative: all
+    outside)."""
+    import torch
+    c = torch.tensor(center, dtype=x.dtype, device=x.device)
+    return float((r - (x - c).norm(dim=1)).max())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -175,10 +281,13 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}",
               file=sys.stderr)
         return 2
+    from mpmavatar_tpu_torch.core import stepping
+    from mpmavatar_tpu_torch.core.types import build_body_sphere
     from mpmavatar_tpu_torch.ops import grid_pipeline as gp
+    from mpmavatar_tpu_torch.ops import splat as ksplat
     from mpmavatar_tpu_torch.ops import stress as kstress
     from mpmavatar_tpu_torch.ops import transfer as ktransfer
-    from mpmavatar_tpu_torch.sim import cloth_drop
+    from mpmavatar_tpu_torch.sim import bench_scene, cloth_drop
 
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
@@ -186,6 +295,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     OUT.mkdir(exist_ok=True)
+    t_start = time.perf_counter()
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -196,62 +306,112 @@ def main() -> int:
     if info.get("log"):
         (OUT / "chip_smoke_build.log").write_text(info["log"])
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function" in line:
                 print("  ptxas:", line.strip())
 
-    # ---- 2. main path -------------------------------------------------
+    # ---- 2. the paths -------------------------------------------------
+    per_sub = {"cloth_stress": 1, "p2g": 1, "grid_pipeline": 1, "g2p": 1}
     solver, state0, model = cloth_drop.build(NX, GRID, device=dev)
     cfg = solver.cfg
     E, P = cfg.n_elements, cfg.n_particles
-    print(f"scene: {NX}x{NX} cloth, E={E}, V={cfg.n_vertices}, P={P}, "
+    print(f"cloth drop: {NX}x{NX} cloth, E={E}, V={cfg.n_vertices}, P={P}, "
           f"G={GRID}^3, dt={DT}, {FRAMES}x{SUBSTEPS} substeps")
     y0 = float(state0.x[E:, 1].mean())
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    state, t = state0, 0.0
-    frame_s = []
-    for f in range(FRAMES):
-        t_f = time.perf_counter()
-        state, t = solver.frame(state, model, DT, SUBSTEPS, t)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t_f)
-    launches = _build.launch_counts()
-    solver.check_finite(state, "main path")
+    state, t, launches, ms_sub = drive("cloth_drop", solver, state0, model,
+                                       {}, FRAMES, SUBSTEPS, per_sub)
     n_sub = FRAMES * SUBSTEPS
-    for name in ("cloth_stress", "p2g", "grid_pipeline", "g2p"):
-        if launches.get(name, 0) != n_sub:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)}"
-                                 f" times in {n_sub} substeps")
+    expect_fall = 9.8 * DT * DT * n_sub * (n_sub + 1) / 2.0
     fall = y0 - float(state.x[E:, 1].mean())
-    expect = 9.8 * DT * DT * n_sub * (n_sub + 1) / 2.0
-    if abs(fall / expect - 1.0) > FALL_REL_TOL:
-        raise AssertionError(f"cloth fell {fall:.6e}, expected {expect:.6e}")
-    ms_sub = 1e3 * frame_s[-1] / SUBSTEPS
-    print(f"main path: launches {launches}; fall {fall:.6e} vs "
-          f"g dt^2 n(n+1)/2 = {expect:.6e}; frame wall times "
-          f"{[round(s, 4) for s in frame_s]} s; steady frame "
-          f"{ms_sub:.4f} ms/substep = {1e3 / ms_sub:.1f} substeps/s")
+    if abs(fall / expect_fall - 1.0) > FALL_REL_TOL:
+        raise AssertionError(f"cloth fell {fall:.6e}, expected "
+                             f"{expect_fall:.6e}")
+    print(f"cloth drop: fall {fall:.6e} vs g dt^2 n(n+1)/2 = "
+          f"{expect_fall:.6e}")
 
-    busy_s, prof_wall, rows = profile_substeps(solver, state, model, t, 20)
-    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {name}"
-                      for name, us, calls in rows)
-    (OUT / "chip_smoke_profile.txt").write_text(table + "\n")
-    if not rows:
-        print("profile: the profiler recorded no device time; device busy "
-              "share not measured")
-    else:
-        idle = 100 * max(0.0, 1 - busy_s / 20 / (ms_sub * 1e-3))
-        print(f"profile of 20 substeps: device busy "
-              f"{1e3 * busy_s / 20:.4f} ms/substep in "
-              f"{sum(r[2] for r in rows) / 20:.1f} kernels/substep, "
-              f"{1e3 * prof_wall / 20:.4f} ms/substep profiled wall; "
-              f"against the unprofiled steady frame the device is idle "
-              f"{idle:.1f}% of the time")
-    for name, us, calls in rows[:12]:
-        print(f"  {us / 20:10.2f} us/substep {calls // 20:4d}/substep  "
-              f"{name[:90]}")
+    per_sub_a = dict(per_sub, splat=2)
+    solver_a, state_a0, model_a, scene_a = bench_scene.build(GRID,
+                                                             device=dev)
+    cfg_a = solver_a.cfg
+    pins = slice(cfg_a.n_no_vertices, cfg_a.n_no_vertices + cfg_a.num_joint_v)
+    print(f"path A (bench_scene --grid {GRID}): P={cfg_a.n_particles}, "
+          f"{len(solver_a.colliders.mesh_colliders[0].faces)} collider "
+          f"faces, {cfg_a.num_joint_v} + {cfg_a.num_joint_f} joint points")
+    state_a, t_a, launches_a, ms_a = drive(
+        "path_A", solver_a, state_a0, model_a, scene_a, FRAMES, SUBSTEPS,
+        per_sub_a)
+    pin_move = float((state_a.x[pins] - state_a0.x[pins]).abs().max())
+    if not pin_move <= PIN_TOL:
+        raise AssertionError(f"pinned vertices moved {pin_move:.3e}")
+    print(f"path A: the {cfg_a.num_joint_v} pinned vertices moved "
+          f"{pin_move:.3e} (tol {PIN_TOL:.0e})")
 
-    # ---- 3. kernels against their plain versions -----------------------
+    per_sub_b = dict(per_sub_a, sand_stress=1)
+    solver_b, state_b0, model_b, scene_b = bench_scene.build(
+        GRID_B, SAND_B, device=dev)
+    cfg_b = solver_b.cfg
+    sand = slice(cfg_b.n_elements, cfg_b.n_no_vertices)
+    print(f"path B (bench_scene --grid {GRID_B} --sand {SAND_B}): "
+          f"P={cfg_b.n_particles}")
+    sand_y0 = float(state_b0.x[sand, 1].mean())
+    state_b, t_b, launches_b, ms_b = drive(
+        "path_B", solver_b, state_b0, model_b, scene_b, FRAMES, SUBSTEPS,
+        per_sub_b)
+    sand_fall = sand_y0 - float(state_b.x[sand, 1].mean())
+    if abs(sand_fall / expect_fall - 1.0) > FALL_REL_TOL:
+        raise AssertionError(f"sand fell {sand_fall:.6e}, expected "
+                             f"{expect_fall:.6e}")
+    print(f"path B: sand fall {sand_fall:.6e} vs g dt^2 n(n+1)/2 = "
+          f"{expect_fall:.6e}")
+
+    # ---- 3. the drape ---------------------------------------------------
+    depth = {}
+    for body in (True, False):
+        s_d, st_d, m_d = cloth_drop.build(NX, GRID, device=dev, body=body)
+        sc_d = cloth_drop.body_scene(dev) if body else {}
+        t_d, t0 = 0.0, time.perf_counter()
+        for _ in range(DRAPE_SUBSTEPS // SUBSTEPS):
+            st_d, t_d = s_d.frame(st_d, m_d, DT, SUBSTEPS, t_d, **sc_d)
+        s_d.check_finite(st_d, f"drape (body={body})")
+        depth[body] = sphere_depth(st_d.x[s_d.cfg.n_elements:],
+                                   cloth_drop.BODY_CENTER, cloth_drop.BODY_R)
+        print(f"drape, {'with' if body else 'without'} the body collider: "
+              f"{DRAPE_SUBSTEPS} substeps in {time.perf_counter() - t0:.2f}"
+              f" s; deepest cloth vertex {depth[body]:.5f} inside the "
+              f"sphere; cloth y range [{float(st_d.x[:, 1].min()):.4f}, "
+              f"{float(st_d.x[:, 1].max()):.4f}]")
+        if body:
+            # one more grid phase from the draped state, K5 with and
+            # without its mesh fields: the cells the mesh branch changed
+            col = s_d.colliders.mesh_colliders[0]
+            post = s_d.colliders.grid_post
+            nd, nf, ny, stress_d, vf = stepping.compute_stress(
+                s_d.cfg, st_d, m_d, DT)
+            st1 = dataclasses.replace(st_d, d=nd, F=nf, yield_stress=ny)
+            gv_in, gm = stepping.p2g(s_d.cfg, st1, m_d, stress_d, vf, DT)
+            acc, mw = stepping.mesh_collider_fields(
+                s_d.cfg, col, sc_d["mesh_x"], sc_d["mesh_v"])
+            surf = gp.pack_surface_params(post)
+            scal = (m_d.gravity, m_d.grid_v_damping_scale)
+            with_mesh = gp.make_grid_pipeline(s_d.cfg, post, True, False)(
+                gv_in, gm, acc, mw, None, None, *scal, col.friction, t_d,
+                DT, surf)
+            no_mesh = gp.make_grid_pipeline(s_d.cfg, post, False, False)(
+                gv_in, gm, None, None, None, None, *scal, None, t_d, DT,
+                surf)
+            changed = int((with_mesh != no_mesh).any(dim=1).sum())
+            covered = int((mw > 1e-15).sum())
+            print(f"drape: K5's mesh branch changed the velocity of "
+                  f"{changed} grid cells ({covered} cells covered by the "
+                  f"collider splat)")
+            if changed <= 0:
+                raise AssertionError("the mesh branch changed no cell")
+    if not depth[True] <= DRAPE_TOL < depth[False]:
+        raise AssertionError(
+            f"drape depth {depth[True]:.5f} (limit {DRAPE_TOL:.5f}) does "
+            f"not separate from the run without a collider "
+            f"({depth[False]:.5f})")
+
+    # ---- 4. kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     st = dataclasses.replace(state, v=state.v + 0.05 * rnd(P, 3))
@@ -260,43 +420,56 @@ def main() -> int:
     sel_e = (torch.rand((E,), generator=gen, device=dev) > 0.1).float()
     k1_in = (d, st.R_inv, st.vol[:E], sel_e, model.mu[:E], model.lam[:E],
              model.gamma[:E], model.kappa[:E], model.friction_coeff)
-    results = []
+    results = {}
 
     # no single PyTorch call computes any of these functions: library_ms
     # stays null
     def check(name, outs, refs, source, replaces, run, run_plain, n_bytes,
-              n_flops):
+              n_flops, launches_of, label=None, err=None, extra=None):
         torch.cuda.synchronize()
-        err_abs, err_rel = rel_err(outs, refs)
-        ok = err_rel <= KERNEL_REL_TOL[name]
+        if err is None:
+            err_abs, err_rel = rel_err(outs, refs)
+            ok = err_rel <= KERNEL_REL_TOL[name]
+            verdict = (f"max_abs_err {err_abs:.3e}, max rel-to-max err "
+                       f"{err_rel:.3e} (tol {KERNEL_REL_TOL[name]:.0e})")
+        elif isinstance(err, float):      # a tolerance worked out here
+            err_abs, err_rel = rel_err(outs, refs)
+            ok = err_rel <= err
+            verdict = (f"max_abs_err {err_abs:.3e}, max rel-to-max err "
+                       f"{err_rel:.3e} (tol {err:.1e})")
+        else:
+            err_abs, ok, verdict = err
         ms, eager_ms = graph_ms(run), event_ms(run)
         plain_ms = event_ms(run_plain, reps=3, inner=5)
         b_ms, b_by = bound(n_bytes, n_flops)
-        print(f"{name}: max_abs_err {err_abs:.3e}, max rel-to-max err "
-              f"{err_rel:.3e} (tol {KERNEL_REL_TOL[name]:.0e}) "
-              f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (eager "
-              f"{eager_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}); launches on the main path "
-              f"{launches.get(name, 0)}")
+        print(f"{label or name}: {verdict} {'ok' if ok else 'FAIL'}; "
+              f"{ms:.4f} ms (eager {eager_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}); "
+              f"launches on the main path {launches_of.get(name, 0)}")
         if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        results.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get(name, 0),
-            "max_abs_err": err_abs, "ms": ms, "eager_ms": eager_ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None})
+            raise AssertionError(f"{label or name} disagrees with its plain "
+                                 "version")
+        entry = {"name": name, "route": "cuda", "source": CSRC + source,
+                 "replaces": replaces,
+                 "launches": launches_of.get(name, 0),
+                 "max_abs_err": err_abs, "ms": ms, "eager_ms": eager_ms,
+                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None, **(extra or {})}
+        if name in results:     # a further shape of a kernel already listed
+            results[name].setdefault("other_shapes", []).append(
+                dict(entry, label=label))
+        else:
+            results[name] = entry
 
-    csrc = "mpmavatar_tpu_torch/ops/csrc/"
     k1 = kstress.cloth_stress(*k1_in)
     k1_ref = kstress.cloth_stress_plain(*k1_in)
     # bytes: 18 floats in + 27 out per element; ~310 FP32 operations per
     # element (QR 60, return map 30, stress + inverse + P 160, outputs 60)
-    check("cloth_stress", k1, k1_ref, csrc + "stress.cu",
+    check("cloth_stress", k1, k1_ref, "stress.cu",
           "mpmavatar_tpu/ops/pallas_stress.py:160",
           lambda: kstress.cloth_stress(*k1_in),
           lambda: kstress.cloth_stress_plain(*k1_in),
-          E * (18 + 27) * 4 + 4, E * 310.0)
+          E * (18 + 27) * 4 + 4, E * 310.0, launches_a)
 
     _, stress_e, f1, f2, f3 = k1
     vforce = torch.zeros((cfg.n_vertices, 3), device=dev)
@@ -313,32 +486,102 @@ def main() -> int:
     # bytes: x, v, C, mass, sel (17 floats) per particle, stress (9) per
     # non-vertex, vforce (3) per vertex, 4 floats out per cell; ~1800 FP32
     # operations per particle (27 nodes x ~66, weights ~30)
-    check("p2g", k2, k2_ref, csrc + "transfer.cu",
+    check("p2g", k2, k2_ref, "transfer.cu",
           "mpmavatar_tpu/ops/pallas_transfer.py:225",
           lambda: ktransfer.p2g(*k2_in), lambda: ktransfer.p2g_plain(*k2_in),
           4 * (17 * P + 9 * E + 3 * cfg.n_vertices + 4 * n_cells),
-          P * 1800.0)
+          P * 1800.0, launches_a)
 
-    pipeline = gp.make_grid_pipeline(cfg, solver.colliders.grid_post,
-                                     has_mesh=False, has_mover=False)
-    surf = gp.pack_surface_params(solver.colliders.grid_post)
-    k5_in = (*k2, None, None, None, None, model.gravity,
-             model.grid_v_damping_scale, None)
+    # K4 at path A's and path B's shapes: the collider's faces (CH = 6)
+    # and the joint points (CH = 3), from the paths' final states
+    col_a = solver_a.colliders.mesh_colliders[0]
+    face_pts, face_vals = stepping.mesh_face_values(
+        col_a, scene_a["mesh_x"], scene_a["mesh_v"])
+    joints = (scene_a["joint_verts_v"], scene_a["joint_faces_v"], None)
+    joint_pts, joint_vals = stepping.mover_points(cfg_a, state_a, *joints)
+
+    def splat_check(label, pts, vals, g, bounds_check=True):
+        args = (pts, vals, g, g / 2.0, bounds_check)
+        out = ksplat.splat(*args)
+        ref = ksplat.splat_plain(*args)
+        n_pts, ch = vals.shape
+        fill = lambda: (torch.zeros((g ** 3, ch), device=dev),
+                        torch.zeros((g ** 3,), device=dev))
+        fill_ms = graph_ms(fill)
+        # points per cell, by the kernel's own index rule
+        base = torch.floor(pts * g / 2.0 - 0.5).long()
+        flat = ktransfer.flat_indices(base, g)
+        flat = torch.where(flat < 0, flat + g ** 3, flat)
+        keep = (flat >= 0) & (flat < g ** 3)
+        if bounds_check:
+            keep &= torch.all((base >= 0) & (base < g - 3), dim=1)[:, None]
+        n_max = int(torch.bincount(flat[keep]).max())
+        tol = max(KERNEL_REL_TOL["splat"], n_max * 2.0 ** -23)
+        # bytes: points and values in ((3 + CH) floats each), the dense
+        # fields out ((CH + 1) floats per cell, written by the wrapper's
+        # zero fill); ~30 + 27 x 2 (CH + 1) FP32 operations per point
+        check("splat", out, ref, "splat.cu",
+              "mpmavatar_tpu/ops/pallas_transfer.py:561",
+              lambda: ksplat.splat(*args), lambda: ksplat.splat_plain(*args),
+              4 * (n_pts * (3 + ch) + g ** 3 * (ch + 1)),
+              n_pts * (30 + 54.0 * (ch + 1)), launches_a, label=label,
+              err=tol, extra={"fill_ms": fill_ms, "points": n_pts,
+                              "channels": ch, "grid": g})
+        print(f"  {label}: {n_pts} points, CH={ch}, {g}^3; the wrapper's "
+              f"zero fill alone {fill_ms:.4f} ms; "
+              f"{int((ref[1] > 1e-15).sum())} cells covered, up to {n_max} "
+              f"points on one cell")
+        return out
+
+    acc_a, mw_a = splat_check("splat (collider faces, 128^3)", face_pts,
+                              face_vals, GRID)
+    mv_a, mvw_a = splat_check("splat (joint points, 128^3)", joint_pts,
+                              joint_vals, GRID)
+    splat_check("splat (collider faces, 250^3)", face_pts, face_vals,
+                GRID_B)
+    edge = 0.1 + 1.8 * torch.rand((20_000, 3), generator=gen, device=dev)
+    dx = 2.0 / GRID
+    edge[:2000, 0] = (GRID - 2.3) * dx + 0.4 * dx * torch.rand(
+        2000, generator=gen, device=dev)          # base G - 3: dropped
+    edge[2000:4000, 1] = -0.2 * torch.rand(2000, generator=gen, device=dev)
+    # base -1 on x, distinct points spread over the (y, z) cells; 16 of
+    # them with base (-1, -1, -1): dropped, or wrapped without the check
+    edge[4000:6000, 0] = 0.45 * dx * torch.rand(2000, generator=gen,
+                                                device=dev)
+    edge[4000:4016] = 0.45 * dx * torch.rand((16, 3), generator=gen,
+                                             device=dev)
+    edge_vals = rnd(20_000, 6)
+    for bc in (True, False):
+        splat_check(f"splat (random points with base G-3 and below 0, "
+                    f"bounds_check={bc})", edge, edge_vals, GRID, bc)
+
+    # K5 at path A's shapes, its mesh and mover branches on
+    post_a = solver_a.colliders.grid_post
+    pipeline = gp.make_grid_pipeline(cfg_a, post_a, has_mesh=True,
+                                     has_mover=True)
+    surf = gp.pack_surface_params(post_a)
+    k5_in = (*k2, acc_a, mw_a, mv_a, mvw_a, model_a.gravity,
+             model_a.grid_v_damping_scale, col_a.friction)
     k5_plain = lambda: gp.grid_pipeline_plain(
         *k5_in, surf, 0.01, DT, GRID, cfg.dx, (0,), False, 3)
     k5 = pipeline(*k5_in, 0.01, DT, surf)
     k5_ref = k5_plain()
     active = int((k2[1] > 1e-15).sum())
-    # bytes: grid_m in and grid_v out (4 floats) per cell, grid_v in (3
-    # floats) per active cell only; ~20 FP32 operations per cell
-    check("grid_pipeline", [k5], [k5_ref], csrc + "grid_pipeline.cu",
+    covered = int((mw_a > 1e-15).sum())
+    movered = int((mvw_a > 1e-15).sum())
+    # bytes: grid_m, mesh_w, mover_w in and grid_v out (6 floats) per
+    # cell; grid_v in (3 floats) per active cell, mesh_acc (6) per covered
+    # cell and mover_v (3) per movered cell only; ~60 FP32 operations per
+    # cell
+    check("grid_pipeline", [k5], [k5_ref], "grid_pipeline.cu",
           "mpmavatar_tpu/ops/pallas_grid_pipeline.py:149",
           lambda: pipeline(*k5_in, 0.01, DT, surf), k5_plain,
-          16 * n_cells + 12 * active, 20.0 * n_cells)
-    print(f"grid_pipeline: {active} active cells of {n_cells}")
+          4 * (6 * n_cells + 3 * active + 6 * covered + 3 * movered),
+          60.0 * n_cells, launches_a)
+    print(f"grid_pipeline: {active} active, {covered} collider-covered and "
+          f"{movered} mover-covered cells of {n_cells}")
     # every branch, on random fields: mesh, mover, sticky / slip /
-    # frictional surfaces and the bounding box (the main path's cloth
-    # never reaches its floor, so its sticky cells are all empty)
+    # frictional surfaces and the bounding box
     from mpmavatar_tpu_torch.core.colliders import (BoundingBoxCollider,
                                                     SurfaceCollider)
     f32 = lambda *v: torch.tensor(v, device=dev)
@@ -378,14 +621,71 @@ def main() -> int:
     # bytes: x in (3 floats), v, C, grad_v out (21) per particle, plus the
     # grid cells the stencils touch (3 floats each); ~1900 FP32 operations
     # per particle (27 nodes x ~70)
-    check("g2p", k3, k3_ref, csrc + "transfer.cu",
+    check("g2p", k3, k3_ref, "transfer.cu",
           "mpmavatar_tpu/ops/pallas_transfer.py:256",
           lambda: ktransfer.g2p(st.x, k5, GRID, cfg.inv_dx),
           lambda: ktransfer.g2p_plain(st.x, k5, GRID, cfg.inv_dx),
-          4 * (24 * P + 3 * touched), P * 1900.0)
+          4 * (24 * P + 3 * touched), P * 1900.0, launches_a)
     print(f"g2p: {touched} grid cells touched by the stencils")
 
-    # ---- 4. kernel path vs plain path over several substeps ------------
+    # K8: path B's sand after its run, and a tip / cone / reflected set
+    sl_b = slice(cfg_b.n_elements, cfg_b.n_no_vertices)
+    sand_b = (state_b.F_trial, state_b.F,
+              (state_b.selection[sl_b] == 0).float(), model_b.mu[sl_b],
+              model_b.lam[sl_b], model_b.alpha)
+    g_cpu = torch.Generator().manual_seed(7)
+    n_set = SAND_B
+    f_set = torch.eye(3) + 0.15 * torch.randn((n_set, 3, 3), generator=g_cpu)
+    f_set[: n_set // 8] *= 1.5                    # tr(eps) > 0: tip
+    f_set[n_set // 8: n_set // 4] *= 0.5          # compression: cone
+    f_set[n_set // 4: n_set // 4 + 100] = torch.diag(torch.tensor(
+        [1.0, 1.0, -1.0])) @ f_set[n_set // 4: n_set // 4 + 100]
+    sand_set = tuple(a.to(dev) for a in (
+        f_set, torch.eye(3) + 0.05 * torch.randn((n_set, 3, 3),
+                                                 generator=g_cpu),
+        (torch.rand(n_set, generator=g_cpu) > 0.2).float(),
+        torch.full((n_set,), 400.0), torch.full((n_set,), 600.0),
+        torch.tensor(0.3)))
+
+    def sand_check(label, args):
+        f_new, st_k, br = kstress.sand_stress(*args, return_branch=True)
+        f_ref, st_ref, br_ref = kstress.sand_stress_plain(
+            *args, return_branch=True)
+        torch.cuda.synchronize()
+        mu = float(args[3].abs().max())
+        flips = br != br_ref
+        nan_same = bool(torch.equal(torch.isnan(st_k), torch.isnan(st_ref)))
+        keep = ~flips & ~torch.isnan(st_ref).flatten(1).any(1)
+        f_err = float((f_new - f_ref)[keep].abs().max())
+        s_err = float((st_k - st_ref)[keep].abs().max())
+        counts = torch.bincount(br_ref.long(), minlength=4).tolist()
+        ok = nan_same and f_err <= SAND_F_TOL and \
+            s_err / mu <= SAND_STRESS_TOL_MU
+        verdict = (f"branches (unselected, elastic, cone, tip) {counts}, "
+                   f"{int(flips.sum())} flipped between kernel and plain; "
+                   f"on the rest F_new err {f_err:.3e} (tol "
+                   f"{SAND_F_TOL:.0e}), stress err {s_err:.3e} = "
+                   f"{s_err / mu:.3e} mu (tol {SAND_STRESS_TOL_MU:.0e} mu); "
+                   f"NaN positions {'equal' if nan_same else 'DIFFER'};")
+        n_t = args[0].shape[0]
+        n_sel = int((args[2] > 0.5).sum())
+        # bytes: F_trial, sel, mu, lam in (12 floats) and F_new, stress out
+        # (18) per particle, F_prev in (9) per unselected particle only;
+        # ~2,000 FP32 operations per selected particle (24 Givens rotations
+        # of A and V ~1,700, U, log/exp, outputs)
+        check("sand_stress", [f_new, st_k], [f_ref, st_ref], "sand.cu",
+              "mpmavatar_tpu/ops/pallas_stress.py:378",
+              lambda: kstress.sand_stress(*args),
+              lambda: kstress.sand_stress_plain(*args),
+              4 * (30 * n_t + 9 * (n_t - n_sel)) + 4, 2000.0 * n_sel,
+              launches_b, label=label, err=(max(f_err, s_err), ok, verdict),
+              extra={"branch_flips": int(flips.sum()), "particles": n_t,
+                     "selected": n_sel})
+
+    sand_check("sand_stress (path B's 100,000 sand particles)", sand_b)
+    sand_check("sand_stress (tip / cone / reflected set)", sand_set)
+
+    # ---- 5. kernel path vs plain path over several substeps ------------
     from mpmavatar_tpu_torch.core import linalg
     solver_cpu = type(solver)(cfg, device="cpu")
     solver_cpu.add_surface_collider([0.0, 0.1, 0.0], [0.0, 1.0, 0.0])
@@ -465,10 +765,73 @@ def main() -> int:
                              f"{min(wrong):.3e})")
     print(f"plain path on the CPU: {1e3 * t_cpu / n_cpu:.1f} ms/substep")
 
-    print(f"slice: {ms_sub:.4f} ms/substep, {1e3 / ms_sub:.2f} substeps/s "
-          f"({P} particles, {GRID}^3 grid) on {smi}")
+    # the contact scene: outward-wound body (the bench's sphere winds
+    # inward, and an inward-wound collider lets a falling cloth through)
+    faces_out = build_body_sphere(
+        center=CONTACT["body_center"],
+        r=CONTACT["body_r"])[1][:, [0, 2, 1]]
+
+    def contact(device, friction=0.5, mover=True):
+        s, st_c, m, sc = bench_scene.build(device=device, **CONTACT)
+        s.colliders = dataclasses.replace(s.colliders, mesh_colliders=(),
+                                          use_particle_mover=mover)
+        s.add_mesh_collider(faces_out, friction=friction)
+        sc["mesh_v"] = torch.tensor(CONTACT_MESH_V, device=device).expand(
+            sc["mesh_x"].shape).contiguous()
+        return s, st_c, m, sc
+
+    s_k, st_k0, m_k, sc_k = contact(dev)
+    cpu_paths = {"plain": contact("cpu"),
+                 "friction 0": contact("cpu", friction=0.0),
+                 "no mover": contact("cpu", mover=False)}
+    print(f"contact scene: P={s_k.cfg.n_particles}, "
+          f"{CONTACT['grid']}^3, {CONTACT['sand']} sand, body top "
+          f"{CONTACT['body_center'][1] + CONTACT['body_r']:.3f} under the "
+          f"cloth at 1.300, rising at {CONTACT_MESH_V[1]} m/s")
+    readings = {name: {"x": [], "v": []} for name in ("kernel", "friction 0",
+                                                      "no mover")}
+    for seed in PATH_SEEDS:
+        g = torch.Generator(device=dev).manual_seed(2000 + seed)
+        a0 = dataclasses.replace(st_k0, v=st_k0.v + 0.05 * torch.randn(
+            st_k0.v.shape, generator=g, device=dev))
+        a = s_k.frame(a0, m_k, DT, COMPARE_SUBSTEPS, 0.0, **sc_k)[0]
+        outs = {name: s.frame(a0.to("cpu"), m, DT, COMPARE_SUBSTEPS, 0.0,
+                              **sc)[0]
+                for name, (s, _, m, sc) in cpu_paths.items()}
+        b = outs["plain"]
+        line = []
+        for name, o in (("kernel", a), ("friction 0", outs["friction 0"]),
+                        ("no mover", outs["no mover"])):
+            for f in ("x", "v"):
+                readings[name][f].append(
+                    float((getattr(o, f).cpu() - getattr(b, f)).abs().max()))
+            line.append(f"{name}: x {readings[name]['x'][-1]:.3e}, v "
+                        f"{readings[name]['v'][-1]:.3e}")
+        print(f"contact scene, seed {seed}, {COMPARE_SUBSTEPS} substeps "
+              f"against the plain path: " + "; ".join(line))
+    for f, tol in PATH_ATOL.items():
+        if not max(readings["kernel"][f]) <= tol:
+            raise AssertionError(f"contact scene: the kernel path disagrees "
+                                 f"with the plain path in {f}")
+    for name in ("friction 0", "no mover"):
+        if not min(readings[name]["v"]) > PATH_ATOL["v"]:
+            raise AssertionError(f"contact scene: the v limit does not "
+                                 f"separate the wrong path ({name})")
+    print(f"contact scene: the limits separate sound (x up to "
+          f"{max(readings['kernel']['x']):.3e}, v up to "
+          f"{max(readings['kernel']['v']):.3e}) from wrong (v from "
+          f"{min(readings['friction 0']['v'] + readings['no mover']['v']):.3e})")
+
+    print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
+          f"{ms_b:.4f} ms/substep on {smi}; chip_smoke ran "
+          f"{time.perf_counter() - t_start:.1f} s after start-up")
+    for entry in results.values():
+        entry["launches_by_path"] = {
+            "cloth_drop": launches.get(entry["name"], 0),
+            "path_A": launches_a.get(entry["name"], 0),
+            "path_B": launches_b.get(entry["name"], 0)}
     print(smi)
-    print(json.dumps({"kernels": results}))
+    print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,13 @@
-"""Carry simulation state and parameters across as numpy arrays.
+"""Carry simulation state, parameters and scene inputs across as numpy
+arrays.
 
 ``state_from_numpy`` / ``model_from_numpy`` build the port's MPMState /
 MPMModel from dicts of arrays keyed by field name (for example every
 field of a JAX ``MPMState`` after ``np.asarray``); ``to_numpy`` converts
-back.  Tests use these so both packages start from identical data.
+back.  ``mesh_collider_from_numpy`` carries a body-mesh collider's faces
+and friction, ``scene_from_numpy`` the per-rollout collider mesh and
+joint velocities (``mesh_x``, ``mesh_v``, ``joint_*_v``).  Tests use these
+so both packages start from identical data.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .core.colliders import MeshCollider
 from .core.types import MPMModel, MPMState
 
 _INT_FIELDS = ("selection", "faces")
@@ -35,6 +40,22 @@ def state_from_numpy(arrays: dict, device=None) -> MPMState:
 
 def model_from_numpy(arrays: dict, device=None) -> MPMModel:
     return _from_numpy(MPMModel, arrays, device)
+
+
+def mesh_collider_from_numpy(faces, friction, device=None) -> MeshCollider:
+    """A body-mesh collider of these faces (as int64) and friction."""
+    device = resolve_device(device)
+    return MeshCollider(
+        faces=torch.as_tensor(np.array(faces, np.int64), device=device),
+        friction=torch.as_tensor(np.float32(friction), device=device))
+
+
+def scene_from_numpy(arrays: dict, device=None) -> dict:
+    """Name -> float32 tensor for the scene inputs of ``p2g2p`` /
+    ``MPMSolver.frame`` (entries that are None stay None)."""
+    device = resolve_device(device)
+    return {k: None if a is None else torch.as_tensor(
+        np.asarray(a, np.float32), device=device) for k, a in arrays.items()}
 
 
 def to_numpy(obj) -> dict:

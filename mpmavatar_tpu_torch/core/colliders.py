@@ -95,7 +95,7 @@ class RotationVelocityModifier:
 class MeshCollider:
     """Body-mesh collision config; per-substep vertex positions and
     velocities are stepper inputs."""
-    faces: torch.Tensor       # (Mf, 3) int32
+    faces: torch.Tensor       # (Mf, 3) int64, cast once at registration
     friction: torch.Tensor    # scalar
 
 

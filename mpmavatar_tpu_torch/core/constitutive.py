@@ -49,15 +49,6 @@ def kirchoff_stress_stvk(f, u, v, sig, mu, lam):
     return u @ _mat(tau) @ _t(v) @ _t(f)
 
 
-def kirchoff_stress_drucker_prager(f, u, v, sig, mu, lam):
-    """Drucker-Prager (sand) stress."""
-    log_sig = torch.log(sig)
-    log_sum = torch.sum(log_sig, dim=-1, keepdim=True)
-    center = 2.0 * mu[..., None] * log_sig / sig \
-        + lam[..., None] * log_sum / sig
-    return u @ _mat(center) @ _t(v) @ _t(f)
-
-
 def von_mises_return_mapping(f_trial, mu, lam, yield_stress, xi,
                              hardening: int):
     """von Mises plastic return map.  Returns (F_elastic, yield_stress)."""
@@ -138,27 +129,6 @@ def viscoplasticity_return_mapping_stvk(f_trial, mu, yield_stress,
     eps_new = s_new / (2.0 * mu[..., None]) + trace_eps / 3.0
     f_elastic = u @ _mat(torch.exp(eps_new)) @ _t(v)
     return torch.where(yielding[..., None, None], f_elastic, f_trial)
-
-
-def sand_return_mapping(f_trial, mu, lam, alpha):
-    """Drucker-Prager sand return map."""
-    u, sig, v = linalg.svd3(f_trial)
-    eps = torch.log(torch.clamp_min(torch.abs(sig), 1e-14))
-    tr = torch.sum(eps, dim=-1)
-    eps_hat = eps - (tr / 3.0)[..., None]
-    eps_hat_norm = safe_norm(eps_hat)
-    delta_gamma = eps_hat_norm + \
-        (3.0 * lam + 2.0 * mu) / (2.0 * mu) * tr * alpha
-
-    vt = _t(v)
-    h = eps - eps_hat * (delta_gamma
-                         / torch.clamp_min(eps_hat_norm, 1e-12))[..., None]
-    f_proj = u @ _mat(torch.exp(h)) @ vt      # cone projection
-    f_cone_tip = u @ vt                       # expansion: project to tip
-    return torch.where((delta_gamma > 0)[..., None, None],
-                       torch.where((tr > 0)[..., None, None], f_cone_tip,
-                                   f_proj),
-                       f_trial)
 
 
 def anisotropy_return_mapping(d, gamma, kappa, friction_coeff):

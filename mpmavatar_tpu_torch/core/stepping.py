@@ -1,14 +1,17 @@
 """The MPM substep (port of mpmavatar_tpu/core/stepping.py).
 
 Phase order, as in the JAX package:
-  stress -> P2G -> grid normalize+gravity(+damping) -> grid BCs ->
-  G2P(vertices/traditional) -> G2P(elements).
+  stress -> P2G -> grid normalize+gravity(+damping) -> mesh colliders ->
+  particle mover -> grid BCs -> G2P(vertices/traditional) -> G2P(elements).
 
-On CUDA tensors ``p2g2p`` runs K1 (cloth stress) -> K2 (P2G) -> K5 (grid
-pipeline) -> K3 (G2P), the kernels under ops/csrc; it takes the unfused
-``grid_update`` + ``apply_grid_bc`` only where the JAX package does, for
-BCs outside ``grid_pipeline.supported_bcs`` (CUT surfaces, cuboids, grid
-masks).  On CPU tensors the same calls run each kernel's plain version.
+On CUDA tensors ``p2g2p`` runs K1 (cloth stress) and K8 (sand stress) ->
+K2 (P2G) -> K4 (collider and mover splats) -> K5 (grid pipeline) -> K3
+(G2P), the kernels under ops/csrc.  It takes the unfused ``grid_update``
++ ``apply_mesh_collider`` + ``apply_particle_mover`` + ``apply_grid_bc``
+only where the JAX package's fused path does not apply: more than one
+mesh collider, or BCs outside ``grid_pipeline.supported_bcs`` (CUT
+surfaces, cuboids, grid masks).  On CPU tensors the same calls run each
+kernel's plain version.
 """
 
 from __future__ import annotations
@@ -18,23 +21,15 @@ import dataclasses
 import torch
 
 from ..ops import grid_pipeline as _gp
+from ..ops import splat as _splat
 from ..ops import stress as _stress
 from ..ops import transfer as _transfer
 from . import constitutive, linalg
 from .colliders import (CUT, STICKY, SLIP, BoundingBoxCollider,
                         ColliderSet, CuboidCollider, GridMaskCollider,
-                        RotationVelocityModifier, SurfaceCollider)
+                        MeshCollider, RotationVelocityModifier,
+                        SurfaceCollider)
 from .types import MPMModel, MPMState, MPMStaticConfig
-
-NEXT_SLICE_K4 = (
-    "the body-mesh collider and the particle mover need K4, the collider/"
-    "mover splat (mpmavatar_tpu/ops/pallas_transfer.py:561 "
-    "splat_columns_fused), which the port does not have yet; it comes "
-    "with the next slice")
-NEEDS_K8 = (
-    "sand (material=2) with traditional particles needs K8, the fused sand "
-    "stress kernel (mpmavatar_tpu/ops/pallas_stress.py:378 _sand_pallas), "
-    "which the port does not have yet")
 
 
 def compute_stress(cfg: MPMStaticConfig, state: MPMState, model: MPMModel,
@@ -42,7 +37,9 @@ def compute_stress(cfg: MPMStaticConfig, state: MPMState, model: MPMModel,
     """Return-map + stress for all non-vertex particles.  Returns
     (new_d (E,3,3), new_F (T,3,3), new_yield_stress (P,),
     stress (E+T,3,3), vertex_force (V,3)).  The element block goes
-    through K1 (``ops.stress.cloth_stress``)."""
+    through K1 (``ops.stress.cloth_stress``) and sand (material 2)
+    through K8 (``ops.stress.sand_stress``), as the JAX package's
+    ``compute_stress(pallas=True)`` does."""
     E, T, V = cfg.n_elements, cfg.n_traditional, cfg.n_vertices
     x = state.x
     dtype, dev = x.dtype, x.device
@@ -63,9 +60,12 @@ def compute_stress(cfg: MPMStaticConfig, state: MPMState, model: MPMModel,
         new_d = state.d
         stress_e = torch.zeros((0, 3, 3), dtype=dtype, device=dev)
 
-    if T > 0:
-        if cfg.material == 2 and x.is_cuda:
-            raise NotImplementedError(NEEDS_K8)
+    if T > 0 and cfg.material == 2:
+        sl = slice(E, E + T)
+        f_new, stress_t = _stress.sand_stress(
+            state.F_trial, state.F, (state.selection[sl] == 0).to(dtype),
+            model.mu[sl], model.lam[sl], model.alpha)
+    elif T > 0:
         f_new, new_ys, stress_t = _traditional_stress(cfg, state, model, dt)
     else:
         f_new = state.F
@@ -77,7 +77,8 @@ def compute_stress(cfg: MPMStaticConfig, state: MPMState, model: MPMModel,
 
 def _traditional_stress(cfg, state, model, dt):
     """Return map + Kirchhoff stress of the traditional block, plain
-    PyTorch for every material (XLA, not Pallas, in the JAX package)."""
+    PyTorch for every material but sand (XLA, not Pallas, in the JAX
+    package)."""
     E, T = cfg.n_elements, cfg.n_traditional
     sl = slice(E, E + T)
     mu, lam = model.mu[sl], model.lam[sl]
@@ -88,9 +89,6 @@ def _traditional_stress(cfg, state, model, dt):
     if mat == 1:      # metal
         f_new, ys_new = constitutive.von_mises_return_mapping(
             f_trial, mu, lam, ys, model.xi, cfg.hardening)
-    elif mat == 2:    # sand
-        f_new = constitutive.sand_return_mapping(f_trial, mu, lam,
-                                                 model.alpha)
     elif mat == 3:    # foam / viscoplastic
         f_new = constitutive.viscoplasticity_return_mapping_stvk(
             f_trial, mu, ys, model.plastic_viscosity, dt)
@@ -113,9 +111,6 @@ def _traditional_stress(cfg, state, model, dt):
     u, sig, v = linalg.svd3(f_new)
     if mat in (1, 3):
         st = constitutive.kirchoff_stress_stvk(f_new, u, v, sig, mu, lam)
-    elif mat == 2:
-        st = constitutive.kirchoff_stress_drucker_prager(f_new, u, v, sig,
-                                                         mu, lam)
     elif mat == 6:
         st = constitutive.kirchoff_stress_neo_hookean(f_new, u, v, j, sig,
                                                       mu, lam)
@@ -155,6 +150,99 @@ def grid_update(cfg: MPMStaticConfig, model: MPMModel, grid_v_in, grid_m,
                         + dt * model.gravity[None, :], 0.0)
     scale = model.grid_v_damping_scale
     return torch.where(scale < 1.0, v_out * scale, v_out)
+
+
+def mesh_face_values(col: MeshCollider, mesh_x, mesh_v):
+    """The collider splat's inputs: face centroids (Fb, 3) and per face
+    the mean vertex velocity and the unit normal cross(p1-p0, p2-p0)
+    (Fb, 6).  The collider resists motion against that normal, so a body
+    mesh's faces wind counter-clockwise seen from outside."""
+    p0, p1, p2 = mesh_x[col.faces].unbind(1)
+    centroid = (p0 + p1 + p2) / 3.0
+    v0, v1, v2 = mesh_v[col.faces].unbind(1)
+    fvel = (v0 + v1 + v2) / 3.0
+    fnorm = linalg.cross(p1 - p0, p2 - p0)
+    fnorm = fnorm / torch.clamp_min(linalg.safe_norm(fnorm, keepdim=True),
+                                    1e-12)
+    return centroid, torch.cat([fvel, fnorm], -1)
+
+
+def mesh_collider_fields(cfg: MPMStaticConfig, col: MeshCollider, mesh_x,
+                         mesh_v):
+    """Face-centroid velocity + unit normal splatted to the grid through
+    K4 (``ops.splat.splat``, the splat half of apply_mesh_collider):
+    (acc (G^3, 6), grid_w (G^3,))."""
+    return _splat.splat(*mesh_face_values(col, mesh_x, mesh_v), cfg.n_grid,
+                        cfg.inv_dx)
+
+
+def apply_mesh_collider(cfg: MPMStaticConfig, col: MeshCollider, mesh_x,
+                        mesh_v, grid_v_out):
+    """Grid-level body-mesh collision (unfused path): splat the faces,
+    then strip the inward normal part of the velocity relative to the
+    mesh, with Coulomb friction."""
+    acc, grid_w = mesh_collider_fields(cfg, col, mesh_x, mesh_v)
+    covered = grid_w > 1e-15
+    mesh_vel = acc[:, :3] / torch.clamp_min(grid_w, 1e-15)[:, None]
+    n = acc[:, 3:]
+    n = n / torch.clamp_min(linalg.safe_norm(n, keepdim=True), 1e-12)
+    v_rel = grid_v_out - mesh_vel
+    normal_comp = torch.sum(v_rel * n, dim=-1)
+    v_proj = v_rel - torch.clamp_max(normal_comp, 0.0)[:, None] * n
+    v_proj_len = linalg.safe_norm(v_proj)
+    fric_len = torch.clamp_min(v_proj_len + normal_comp * col.friction, 0.0)
+    fric_active = (normal_comp < 0.0) & (v_proj_len > 1e-20)
+    len_safe = torch.where(fric_active, v_proj_len, 1.0)
+    v_fric = torch.where(fric_active[:, None],
+                         (fric_len / len_safe)[:, None] * v_proj, v_proj)
+    return torch.where(covered[:, None], v_fric + mesh_vel, grid_v_out)
+
+
+def mover_points(cfg: MPMStaticConfig, state: MPMState, joint_verts_v=None,
+                 joint_faces_v=None, joint_traditional_v=None):
+    """The mover splat's inputs, all joint classes together: (positions
+    (J, 3), prescribed velocities (J, 3)), or None without joints."""
+    E, T = cfg.n_elements, cfg.n_traditional
+    pts, vels = [], []
+    if joint_traditional_v is not None and cfg.num_joint_t > 0:
+        # joint traditional particles sit at the end of the traditional
+        # block
+        pts.append(state.x[E + T - cfg.num_joint_t:E + T])
+        vels.append(joint_traditional_v)
+    if joint_verts_v is not None and cfg.num_joint_v > 0:
+        pts.append(state.x[E + T:E + T + cfg.num_joint_v])
+        vels.append(joint_verts_v)
+    if joint_faces_v is not None and cfg.num_joint_f > 0:
+        pts.append(state.x[:cfg.num_joint_f])
+        vels.append(joint_faces_v)
+    if not pts:
+        return None
+    return torch.cat(pts, 0), torch.cat(vels, 0)
+
+
+def mover_fields(cfg: MPMStaticConfig, state: MPMState, joint_verts_v=None,
+                 joint_faces_v=None, joint_traditional_v=None):
+    """Prescribed joint velocities splatted from the joint particles'
+    positions in one splat through K4 (the scatter half of
+    apply_particle_mover): (grid_vel (G^3, 3), grid_w (G^3,))."""
+    points = mover_points(cfg, state, joint_verts_v, joint_faces_v,
+                          joint_traditional_v)
+    if points is None:
+        n = cfg.n_grid ** 3
+        return (state.x.new_zeros((n, 3)), state.x.new_zeros((n,)))
+    return _splat.splat(*points, cfg.n_grid, cfg.inv_dx)
+
+
+def apply_particle_mover(cfg: MPMStaticConfig, state: MPMState, grid_v_out,
+                         joint_verts_v=None, joint_faces_v=None,
+                         joint_traditional_v=None):
+    """Joint-band Dirichlet velocities (unfused path): overwrite the grid
+    velocity wherever the joint splat's weight is nonzero."""
+    grid_vel, grid_w = mover_fields(cfg, state, joint_verts_v,
+                                    joint_faces_v, joint_traditional_v)
+    covered = grid_w > 1e-15
+    v = grid_vel / torch.clamp_min(grid_w, 1e-15)[:, None]
+    return torch.where(covered[:, None], v, grid_v_out)
 
 
 def _grid_coords(cfg: MPMStaticConfig, dtype, device):
@@ -260,8 +348,10 @@ def g2p(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, grid_v_out,
     c1 = torch.where(upd[:, None, None], new_c, state.C)
 
     if T > 0:
-        gv_t = grad_v[E:E + T]
-        f_new = state.F + dt * (gv_t @ state.F)
+        # F += dt grad_v F as an elementwise product and sum: as a batched
+        # (T,3,3)@(T,3,3) product it runs as cuBLAS GEMMs of 3x3 tiles
+        f_new = state.F + dt * (grad_v[E:E + T, :, :, None]
+                                * state.F[:, None, :, :]).sum(2)
         f_trial = torch.where(sel[E:E + T, None, None], f_new,
                               state.F_trial)
     else:
@@ -327,37 +417,76 @@ def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
 
 
 def make_grid_stage(cfg: MPMStaticConfig, colliders: ColliderSet):
-    """The substep's grid update and grid BCs, bound once per collider set:
-    fn(grid_v_in, grid_m, model, time, dt) -> grid_v_out.  K5 (the fused
-    grid pipeline) when every BC is kernel-supported, else the unfused
-    ``grid_update`` + ``apply_grid_bc``, as in the JAX package."""
-    post = colliders.grid_post
-    if not _gp.supported_bcs(post):
-        def unfused(grid_v_in, grid_m, model, time, dt):
+    """The substep's grid phase, bound once per collider set:
+    fn(grid_v_in, grid_m, state, model, time, dt, mesh_x, mesh_v, joints)
+    -> grid_v_out, ``joints`` = (joint_verts_v, joint_faces_v,
+    joint_traditional_v).  With at most one mesh collider and every BC
+    kernel-supported it is K5 (the fused grid pipeline) fed by the K4
+    splats, else the unfused ``grid_update`` -> ``apply_mesh_collider``
+    -> ``apply_particle_mover`` -> ``apply_grid_bc``, as in the JAX
+    package.  The mover runs when it is registered and joint velocities
+    are given."""
+    post, meshes = colliders.grid_post, colliders.mesh_colliders
+
+    def mover_on(joints):
+        return colliders.use_particle_mover and any(
+            j is not None for j in joints)
+
+    def check_mesh(mesh_x, mesh_v):
+        if meshes and (mesh_x is None or mesh_v is None):
+            raise ValueError("a mesh collider is registered: pass mesh_x "
+                             "and mesh_v")
+
+    if len(meshes) > 1 or not _gp.supported_bcs(post):
+        def unfused(grid_v_in, grid_m, state, model, time, dt, mesh_x,
+                    mesh_v, joints):
+            check_mesh(mesh_x, mesh_v)
             grid_v_out = grid_update(cfg, model, grid_v_in, grid_m, dt)
+            for col in meshes:
+                grid_v_out = apply_mesh_collider(cfg, col, mesh_x, mesh_v,
+                                                 grid_v_out)
+            if mover_on(joints):
+                grid_v_out = apply_particle_mover(cfg, state, grid_v_out,
+                                                  *joints)
             for col in post:
                 grid_v_out = apply_grid_bc(cfg, col, grid_v_out, time, dt)
             return grid_v_out
         return unfused
-    pipeline = _gp.make_grid_pipeline(cfg, post, has_mesh=False,
-                                      has_mover=False)
+
+    pipelines = {mover: _gp.make_grid_pipeline(cfg, post,
+                                               has_mesh=bool(meshes),
+                                               has_mover=mover)
+                 for mover in (False, True)}
     surf = _gp.pack_surface_params(post)
 
-    def fused(grid_v_in, grid_m, model, time, dt):
-        return pipeline(grid_v_in, grid_m, None, None, None, None,
-                        model.gravity, model.grid_v_damping_scale, None,
-                        time, dt, surf)
+    def fused(grid_v_in, grid_m, state, model, time, dt, mesh_x, mesh_v,
+              joints):
+        check_mesh(mesh_x, mesh_v)
+        acc = mesh_w = friction = mover_v = mover_w = None
+        if meshes:
+            acc, mesh_w = mesh_collider_fields(cfg, meshes[0], mesh_x,
+                                               mesh_v)
+            friction = meshes[0].friction
+        mover = mover_on(joints)
+        if mover:
+            mover_v, mover_w = mover_fields(cfg, state, *joints)
+        return pipelines[mover](grid_v_in, grid_m, acc, mesh_w, mover_v,
+                                mover_w, model.gravity,
+                                model.grid_v_damping_scale, friction, time,
+                                dt, surf)
     return fused
 
 
 def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
-          model: MPMModel, dt: float, time: float,
+          model: MPMModel, dt: float, time: float, mesh_x=None, mesh_v=None,
+          joint_verts_v=None, joint_faces_v=None, joint_traditional_v=None,
           grid_stage=None) -> MPMState:
     """One full MPM substep; ``dt`` and ``time`` are Python floats.
+    ``mesh_x``/``mesh_v`` (Vb, 3) are the body-mesh collider's vertices
+    this substep; the ``joint_*_v`` are the mover's prescribed velocities
+    of the joint vertices, faces and traditional particles.
     ``grid_stage`` is ``make_grid_stage(cfg, colliders)``, built here when
     the caller has none."""
-    if colliders.mesh_colliders or colliders.use_particle_mover:
-        raise NotImplementedError(NEXT_SLICE_K4)
     if grid_stage is None:
         grid_stage = make_grid_stage(cfg, colliders)
     dt, time = float(dt), float(time)
@@ -369,7 +498,9 @@ def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
     state = dataclasses.replace(state, d=new_d, F=new_f,
                                 yield_stress=new_ys)
     grid_v_in, grid_m = p2g(cfg, state, model, stress, vertex_force, dt)
-    grid_v_out = grid_stage(grid_v_in, grid_m, model, time, dt)
+    grid_v_out = grid_stage(grid_v_in, grid_m, state, model, time, dt,
+                            mesh_x, mesh_v, (joint_verts_v, joint_faces_v,
+                                             joint_traditional_v))
     x1, v1, c1, f_trial, d1 = g2p(cfg, state, model, grid_v_out, dt)
     return dataclasses.replace(state, x=x1, v=v1, C=c1, F_trial=f_trial,
                                d=d1)

@@ -235,6 +235,26 @@ def build_cloth(nx: int, ny: int, y0: float = 1.3, extent: float = 0.9):
     return verts, faces
 
 
+def build_body_sphere(n_theta: int = 48, n_phi: int = 48,
+                      center=(1.0, 0.9, 1.0), r: float = 0.25):
+    """A UV sphere standing in for the body mesh (the bench scene's
+    collider; 48 x 48 vertices, 4,512 faces): returns (verts (Vb,3) f32,
+    faces (Fb,3) int32) as numpy arrays."""
+    th = np.linspace(0, np.pi, n_theta)
+    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack([np.sin(tt) * np.cos(pp), np.cos(tt),
+                    np.sin(tt) * np.sin(pp)], -1) * r + np.asarray(center)
+    idx = np.arange(n_theta * n_phi).reshape(n_theta, n_phi)
+    a = idx[:-1, :].ravel()
+    b = idx[1:, :].ravel()
+    c = idx[:-1, np.r_[1:n_phi, 0]].ravel()
+    d = idx[1:, np.r_[1:n_phi, 0]].ravel()
+    faces = np.concatenate([np.stack([a, b, c], -1),
+                            np.stack([c, b, d], -1)], 0).astype(np.int32)
+    return pts.reshape(-1, 3).astype(np.float32), faces
+
+
 def cloth_scene(verts, faces, n_grid: int, E: float = 2000.0,
                 nu: float = 0.3, device=None):
     """(cfg, state, model) for a cloth of elements + vertices (material 7),

@@ -125,6 +125,8 @@ _SIGNATURES = {
     "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P],
     "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _F, _I, _I, _I,
                                          _I, _I, _I, _P, _P],
+    "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
 }
 
 

@@ -48,7 +48,9 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3],
 //   grid_v += w*mass*sel*(v + C_eff (o - fx) dx) + sel*F,
 //   F = -stress . grad w (non-vertex)  or  w * vforce (vertex),
 //   grid_m += w*mass*sel,
-// dropping stencil nodes whose flat index falls outside [0, G^3).
+// with the scatter's index rule of the JAX package (.at[].add(mode=
+// "drop")): a flat index in [-G^3, 0) wraps to flat + G^3, and what still
+// lies outside [0, G^3) is dropped.
 __global__ void p2g_kernel(const float* __restrict__ x,
                            const float* __restrict__ v,
                            const float* __restrict__ c_eff,
@@ -88,7 +90,8 @@ __global__ void p2g_kernel(const float* __restrict__ x,
         const long long flat =
             (static_cast<long long>(base[0] + i) * G + (base[1] + j)) * G
             + (base[2] + k);
-        if (flat < 0 || flat >= n_cells) continue;
+        const long long cell = flat < 0 ? flat + n_cells : flat;
+        if (cell < 0 || cell >= n_cells) continue;
         const float wt = w[0][i] * w[1][j] * w[2][k];
         const float dpos[3] = {(i - fx[0]) * dx, (j - fx[1]) * dx,
                                (k - fx[2]) * dx};
@@ -108,9 +111,9 @@ __global__ void p2g_kernel(const float* __restrict__ x,
           const float mom = vp[a] + (cm[3 * a] * dpos[0]
                                      + cm[3 * a + 1] * dpos[1]
                                      + cm[3 * a + 2] * dpos[2]);
-          atomicAdd(grid_v + 3 * flat + a, mw * mom + s * force[a]);
+          atomicAdd(grid_v + 3 * cell + a, mw * mom + s * force[a]);
         }
-        atomicAdd(grid_m + flat, mw);
+        atomicAdd(grid_m + cell, mw);
       }
     }
   }

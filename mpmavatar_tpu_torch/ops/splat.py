@@ -1,0 +1,70 @@
+"""K4: w-weighted B-spline splat of point values onto the dense grid.
+
+``splat`` launches the CUDA kernel of ``csrc/splat.cu`` on CUDA tensors
+and runs ``splat_plain`` on CPU tensors.  Both replace
+mpmavatar_tpu/ops/pallas_transfer.py::splat_columns_fused (inline kernel
+over ``_splat_math``) with its contract minus the column bins, which is
+the contract of mpmavatar_tpu/core/stepping.py::rasterize_to_grid: the
+grid is flat
+x-major, the weight comes back as its own channel, and the bounds check is
+the reference's asymmetric ``base >= 0 & base < G - 3`` on every axis (a
+point with base G - 3 is dropped whole).  Forward only, as in the JAX
+package: the splat's inputs (collider mesh, joint velocities) are rollout
+inputs, not trained parameters.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .transfer import bspline, flat_indices, scatter_rows, stencil_products
+
+KERNEL = "splat"
+
+
+def _check_shapes(points, values):
+    if points.dim() != 2 or points.shape[1] != 3 or values.dim() != 2 \
+            or values.shape[0] != points.shape[0]:
+        raise ValueError("splat: points must be (N, 3) and values (N, CH)")
+
+
+def splat(points, values, n_grid: int, inv_dx: float,
+          bounds_check: bool = True):
+    """(grid_vals (G^3, CH), grid_w (G^3,)): sum over points of w * values
+    and of w, w the 27-node stencil weight.
+
+    On CUDA tensors this launches the kernel (or raises); it runs the
+    plain version only for CPU tensors."""
+    _check_shapes(points, values)
+    if not points.is_cuda:
+        return splat_plain(points, values, n_grid, inv_dx, bounds_check)
+    pts = _build.check_cuda("points", points)
+    vals = _build.check_cuda("values", values)
+    n, ch = vals.shape
+    n_cells = n_grid ** 3
+    grid_vals = torch.zeros((n_cells, ch), dtype=pts.dtype,
+                            device=pts.device)
+    grid_w = torch.zeros((n_cells,), dtype=pts.dtype, device=pts.device)
+    if n:
+        _build.launch(KERNEL, "launch_splat", pts.data_ptr(), vals.data_ptr(),
+                      n, ch, n_grid, inv_dx, int(bounds_check),
+                      grid_vals.data_ptr(), grid_w.data_ptr(),
+                      _build.stream(pts.device))
+    return grid_vals, grid_w
+
+
+def splat_plain(points, values, n_grid: int, inv_dx: float,
+                bounds_check: bool = True):
+    """Plain PyTorch version of the kernel (``index_add_`` scatter), as
+    the JAX package's ``stepping.rasterize_to_grid`` computes it."""
+    base, _, w, _ = bspline(points, inv_dx)
+    w27 = stencil_products(w)                                 # (N, 27)
+    if bounds_check:
+        inb = torch.all((base >= 0) & (base < n_grid - 3), dim=-1)
+        w27 = w27 * inb[:, None].to(w27.dtype)
+    src = torch.cat([w27[..., None] * values[:, None, :], w27[..., None]],
+                    -1).reshape(-1, values.shape[1] + 1)
+    grid = scatter_rows(flat_indices(base, n_grid).reshape(-1), src,
+                        n_grid ** 3)
+    return grid[:, :-1].contiguous(), grid[:, -1].contiguous()

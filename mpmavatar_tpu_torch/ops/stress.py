@@ -1,4 +1,6 @@
-"""K1: fused cloth stress (QR + return map + anisotropic stress).
+"""K1: fused cloth stress (QR + return map + anisotropic stress) and K8:
+fused sand stress (Jacobi SVD + Drucker-Prager return map + spectral
+stress).
 
 ``cloth_stress`` launches the CUDA kernel of ``csrc/stress.cu`` on CUDA
 tensors and runs ``cloth_stress_plain`` on CPU tensors.  Both replace
@@ -6,6 +8,11 @@ mpmavatar_tpu/ops/pallas_stress.py::cloth_stress_fused (kernel
 ``_stress_pallas``, math ``_stress_math``) and compute what it computes:
 the ``sqrt(x + 1e-24)`` norms, the ``1/max(., 1e-12)`` guards and the
 unselected elements that keep their d3 and get zero stress and forces.
+
+``sand_stress`` launches the CUDA kernel of ``csrc/sand.cu`` on CUDA
+tensors and runs ``sand_stress_plain`` on CPU tensors.  Both replace
+::sand_stress_fused (kernel ``_sand_pallas``, math ``_sand_math`` and
+``_svd3_planes``) on (T, 3, 3) tensors, without the 22-plane packing.
 """
 
 from __future__ import annotations
@@ -15,7 +22,10 @@ import torch
 from . import _build
 
 KERNEL = "cloth_stress"
+SAND_KERNEL = "sand_stress"
 _EPS = 1e-12
+# sand_stress branch codes (the kernel's optional ``branch`` output)
+UNSELECTED, ELASTIC, CONE, TIP = 0, 1, 2, 3
 
 
 def cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa, friction_coeff):
@@ -138,3 +148,171 @@ def cloth_stress_plain(d, r_inv, vol, sel, mu, lam, gamma, kappa,
         * msk[:, :, None]
     new_d = torch.cat([d[:, :, :2], nd3[:, :, None]], dim=-1)
     return new_d, stress, f1 * msk, f2 * msk, f3 * msk
+
+
+def sand_stress(f_trial, f_prev, sel, mu, lam, alpha,
+                return_branch: bool = False):
+    """Drucker-Prager return map + spectral Kirchhoff stress of the
+    traditional block: (f_new (T,3,3), stress (T,3,3)), plus the branch
+    code of each particle (int32, ``UNSELECTED``/``ELASTIC``/``CONE``/
+    ``TIP``) when ``return_branch``.  ``sel`` is 1.0 where the particle is
+    simulated; an unselected particle keeps ``f_prev`` and gets zero
+    stress.
+
+    On CUDA tensors this launches the kernel (or raises); it runs the
+    plain version only for CPU tensors."""
+    n = f_trial.shape[0]
+    if f_trial.shape != (n, 3, 3) or f_prev.shape != (n, 3, 3) or any(
+            t.shape != (n,) for t in (sel, mu, lam)):
+        raise ValueError("sand_stress: inconsistent particle shapes")
+    if not f_trial.is_cuda:
+        return sand_stress_plain(f_trial, f_prev, sel, mu, lam, alpha,
+                                 return_branch)
+    ins = [_build.check_cuda(name, t) for name, t in (
+        ("f_trial", f_trial), ("f_prev", f_prev), ("sel", sel), ("mu", mu),
+        ("lam", lam), ("alpha", alpha.reshape(1)))]
+    f_new = torch.empty_like(ins[0])
+    stress = torch.empty_like(ins[0])
+    branch = (torch.empty((n,), dtype=torch.int32, device=f_trial.device)
+              if return_branch else None)
+    if n:
+        _build.launch(SAND_KERNEL, "launch_sand",
+                      *[t.data_ptr() for t in ins], n, f_new.data_ptr(),
+                      stress.data_ptr(), _build.ptr(branch),
+                      _build.stream(f_trial.device))
+    return (f_new, stress, branch) if return_branch else (f_new, stress)
+
+
+def _svd3_planes(f):
+    """Line for line ``pallas_stress._svd3_planes`` on a 3x3 of (T,)
+    tensors: (u, sigma, v), u and v 3x3 lists, sigma a 3-list sorted
+    descending with sigma[2] < 0 iff det f < 0.  8 cyclic Jacobi sweeps
+    on the full f^T f, so it squares f's condition number."""
+    a = [[f[0][i] * f[0][j] + f[1][i] * f[1][j] + f[2][i] * f[2][j]
+          for j in range(3)] for i in range(3)]
+    one, zero = torch.ones_like(f[0][0]), torch.zeros_like(f[0][0])
+    v = [[one if i == j else zero for j in range(3)] for i in range(3)]
+    for _ in range(8):
+        for (p, q) in ((0, 1), (0, 2), (1, 2)):
+            app, aqq, apq = a[p][p], a[q][q], a[p][q]
+            small = torch.abs(apq) < _EPS
+            tau = (aqq - app) / (2.0 * torch.where(small, 1.0, apq))
+            sgn = torch.where(tau >= 0.0, 1.0, -1.0)
+            t = sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(small, 0.0, t)
+            c = 1.0 / torch.sqrt(1.0 + t * t)
+            s = t * c
+            bp = [c * a[i][p] - s * a[i][q] for i in range(3)]
+            bq = [s * a[i][p] + c * a[i][q] for i in range(3)]
+            b = [[bp[i] if j == p else (bq[i] if j == q else a[i][j])
+                  for j in range(3)] for i in range(3)]
+            rp = [c * b[p][j] - s * b[q][j] for j in range(3)]
+            rq = [s * b[p][j] + c * b[q][j] for j in range(3)]
+            a = [[rp[j] if i == p else (rq[j] if i == q else b[i][j])
+                  for j in range(3)] for i in range(3)]
+            vp = [c * v[i][p] - s * v[i][q] for i in range(3)]
+            vq = [s * v[i][p] + c * v[i][q] for i in range(3)]
+            v = [[vp[i] if j == p else (vq[i] if j == q else v[i][j])
+                  for j in range(3)] for i in range(3)]
+
+    ev = [a[0][0], a[1][1], a[2][2]]
+    for (i, j) in ((0, 1), (1, 2), (0, 1)):      # stable descending sort
+        sw = ev[i] < ev[j]
+        ev[i], ev[j] = (torch.where(sw, ev[j], ev[i]),
+                        torch.where(sw, ev[i], ev[j]))
+        for r in range(3):
+            v[r][i], v[r][j] = (torch.where(sw, v[r][j], v[r][i]),
+                                torch.where(sw, v[r][i], v[r][j]))
+
+    detv = (v[0][0] * (v[1][1] * v[2][2] - v[1][2] * v[2][1])
+            - v[0][1] * (v[1][0] * v[2][2] - v[1][2] * v[2][0])
+            + v[0][2] * (v[1][0] * v[2][1] - v[1][1] * v[2][0]))
+    sv = torch.sign(detv)
+    for i in range(3):
+        v[i][2] = v[i][2] * sv
+    sigma = [torch.sqrt(torch.clamp_min(e, 0.0)) for e in ev]
+
+    fv = [[f[i][0] * v[0][j] + f[i][1] * v[1][j] + f[i][2] * v[2][j]
+           for j in range(2)] for i in range(3)]
+    inv_s0 = 1.0 / torch.clamp_min(sigma[0], _EPS)
+    u0 = [fv[i][0] * inv_s0 for i in range(3)]
+    n0 = torch.sqrt(u0[0] * u0[0] + u0[1] * u0[1] + u0[2] * u0[2] + 1e-24)
+    u0 = [c / torch.clamp_min(n0, _EPS) for c in u0]
+    d1 = fv[0][1] * u0[0] + fv[1][1] * u0[1] + fv[2][1] * u0[2]
+    u1r = [fv[i][1] - d1 * u0[i] for i in range(3)]
+    n1 = torch.sqrt(u1r[0] * u1r[0] + u1r[1] * u1r[1] + u1r[2] * u1r[2]
+                    + 1e-24)
+    # degenerate fallback: cross(u0, e_x or e_y)
+    use_x = torch.abs(u0[0]) < 0.9
+    ax = [torch.where(use_x, 1.0, 0.0), torch.where(use_x, 0.0, 1.0), zero]
+    alt = [u0[1] * ax[2] - u0[2] * ax[1],
+           u0[2] * ax[0] - u0[0] * ax[2],
+           u0[0] * ax[1] - u0[1] * ax[0]]
+    na = torch.sqrt(alt[0] * alt[0] + alt[1] * alt[1] + alt[2] * alt[2]
+                    + 1e-24)
+    alt = [c / torch.clamp_min(na, _EPS) for c in alt]
+    ok1 = n1 > 1e-6
+    inv_n1 = 1.0 / torch.clamp_min(n1, _EPS)
+    u1 = [torch.where(ok1, u1r[i] * inv_n1, alt[i]) for i in range(3)]
+    u2 = [u0[1] * u1[2] - u0[2] * u1[1],
+          u0[2] * u1[0] - u0[0] * u1[2],
+          u0[0] * u1[1] - u0[1] * u1[0]]
+    u = [[u0[i], u1[i], u2[i]] for i in range(3)]
+
+    detf = (f[0][0] * (f[1][1] * f[2][2] - f[1][2] * f[2][1])
+            - f[0][1] * (f[1][0] * f[2][2] - f[1][2] * f[2][0])
+            + f[0][2] * (f[1][0] * f[2][1] - f[1][1] * f[2][0]))
+    sigma[2] = sigma[2] * torch.where(detf < 0.0, -1.0, 1.0)
+    return u, sigma, v
+
+
+def sand_stress_plain(f_trial, f_prev, sel, mu, lam, alpha,
+                      return_branch: bool = False):
+    """Plain PyTorch version of the kernel, line for line with
+    ``_sand_math`` on (T,) tensors; runs on any device."""
+    ft = [[f_trial[:, i, j] for j in range(3)] for i in range(3)]
+    fp = [[f_prev[:, i, j] for j in range(3)] for i in range(3)]
+    u, sig, v = _svd3_planes(ft)
+
+    eps = [torch.log(torch.clamp_min(torch.abs(s), 1e-14)) for s in sig]
+    tr = eps[0] + eps[1] + eps[2]
+    eh = [e - tr / 3.0 for e in eps]
+    ehn = torch.sqrt(eh[0] * eh[0] + eh[1] * eh[1] + eh[2] * eh[2] + 1e-24)
+    delta_gamma = ehn + (3.0 * lam + 2.0 * mu) / (2.0 * mu) * tr * alpha
+    scale = delta_gamma / torch.clamp_min(ehn, _EPS)
+    h = [eps[k] - eh[k] * scale for k in range(3)]
+    exph = [torch.exp(hk) for hk in h]
+
+    def recompose(diag, w):
+        return [[u[i][0] * diag[0] * w[j][0] + u[i][1] * diag[1] * w[j][1]
+                 + u[i][2] * diag[2] * w[j][2] for j in range(3)]
+                for i in range(3)]
+
+    one = torch.ones_like(sig[0])
+    f_proj = recompose(exph, v)
+    f_tip = recompose([one, one, one], v)
+    yielding = delta_gamma > 0
+    expand = tr > 0
+    use = sel > 0.5
+    f_new = [[torch.where(use, torch.where(
+        yielding, torch.where(expand, f_tip[i][j], f_proj[i][j]), ft[i][j]),
+        fp[i][j]) for j in range(3)] for i in range(3)]
+
+    # spectral Drucker-Prager stress from the return map's log s (the
+    # elastic branch: log of the trial singular values unclamped, NaN for
+    # det < 0, as the (T,3,3) path)
+    zero = torch.zeros_like(sig[0])
+    logs = [torch.where(yielding, torch.where(expand, zero, h[k]),
+                        torch.log(sig[k])) for k in range(3)]
+    log_sum = logs[0] + logs[1] + logs[2]
+    diag = [2.0 * mu * logs[k] + lam * log_sum for k in range(3)]
+    st = recompose(diag, u)
+    stress = [[torch.where(use, st[i][j], 0.0) for j in range(3)]
+              for i in range(3)]
+    f_new = torch.stack([torch.stack(row, -1) for row in f_new], -2)
+    stress = torch.stack([torch.stack(row, -1) for row in stress], -2)
+    if not return_branch:
+        return f_new, stress
+    branch = torch.where(use, torch.where(
+        yielding, torch.where(expand, TIP, CONE), ELASTIC), UNSELECTED)
+    return f_new, stress, branch.to(torch.int32)

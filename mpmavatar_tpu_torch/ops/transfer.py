@@ -72,6 +72,20 @@ def flat_indices(base, n_grid: int):
     return (idx[..., 0] * n_grid + idx[..., 1]) * n_grid + idx[..., 2]
 
 
+def scatter_rows(flat, src, n_cells: int):
+    """Sum the rows ``src`` (M, C) into a zeroed (n_cells, C) grid at flat
+    indices ``flat`` (M,), with the index rule of the JAX package's
+    ``.at[].add(mode="drop")``: an index in [-n_cells, 0) wraps to
+    index + n_cells, and what still lies outside [0, n_cells) is
+    dropped."""
+    flat = torch.where(flat < 0, flat + n_cells, flat)
+    keep = (flat >= 0) & (flat < n_cells)
+    grid = torch.zeros((n_cells, src.shape[1]), dtype=src.dtype,
+                       device=src.device)
+    grid.index_add_(0, flat[keep], src[keep])
+    return grid
+
+
 def _check_p2g_shapes(x, v, c_eff, mass, sel, stress, vforce):
     p = x.shape[0]
     nnv = stress.shape[0]
@@ -125,12 +139,8 @@ def p2g_plain(x, v, c_eff, mass, sel, stress, vforce, n_grid: int,
     mass_w = w27 * (mass * sel)[:, None]
     v_add = mass_w[..., None] * momentum + sel[:, None, None] * force
 
-    n_cells = n_grid ** 3
-    flat = gidx.reshape(-1)
-    keep = (flat >= 0) & (flat < n_cells)                     # mode="drop"
     src = torch.cat([v_add, mass_w[..., None]], -1).reshape(-1, 4)
-    grid = torch.zeros((n_cells, 4), dtype=x.dtype, device=x.device)
-    grid.index_add_(0, flat[keep], src[keep])
+    grid = scatter_rows(gidx.reshape(-1), src, n_grid ** 3)
     return grid[:, :3].contiguous(), grid[:, 3].contiguous()
 
 

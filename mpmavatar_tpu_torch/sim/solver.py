@@ -20,7 +20,8 @@ from .. import resolve_device
 from ..core import stepping
 from ..core.colliders import (BoundingBoxCollider, ColliderSet,
                               CuboidCollider, GridMaskCollider,
-                              ParticleImpulse, ParticleVelocityModifier,
+                              MeshCollider, ParticleImpulse,
+                              ParticleVelocityModifier,
                               RotationVelocityModifier, SurfaceCollider,
                               CUT, FRICTIONAL, SLIP, STICKY)
 from ..core.types import MPMModel, MPMState, MPMStaticConfig
@@ -102,10 +103,18 @@ class MPMSolver:
         self._add_grid_post(GridMaskCollider(mask=self._i32(mask)))
 
     def add_mesh_collider(self, mesh_faces, friction=0.0):
-        raise NotImplementedError(stepping.NEXT_SLICE_K4)
+        """A body-mesh collider of these faces; its vertex positions and
+        velocities are ``frame``/``substep`` inputs."""
+        self._replace(mesh_colliders=self.colliders.mesh_colliders + (
+            MeshCollider(faces=torch.as_tensor(np.asarray(mesh_faces),
+                                               dtype=torch.int64,
+                                               device=self.device),
+                         friction=self._f32(friction)),))
 
     def add_particle_mover(self):
-        raise NotImplementedError(stepping.NEXT_SLICE_K4)
+        """Pin the joint particles (``cfg.num_joint_*``) to the joint
+        velocities given to ``frame``/``substep``."""
+        self._replace(use_particle_mover=True)
 
     def add_impulse_on_particles(self, mask, force, start_time=0.0,
                                  end_time=999.0, scale_by_mass=True):
@@ -191,20 +200,34 @@ class MPMSolver:
     # stepping
     # ------------------------------------------------------------------
     def substep(self, state: MPMState, model: MPMModel, dt: float,
-                time: float) -> MPMState:
+                time: float, **scene) -> MPMState:
+        """One substep; ``scene`` takes ``p2g2p``'s mesh_x, mesh_v and
+        joint_*_v."""
         return stepping.p2g2p(self.cfg, self.colliders, state, model, dt,
-                              time, self.grid_stage())
+                              time, grid_stage=self.grid_stage(), **scene)
 
     def frame(self, state: MPMState, model: MPMModel, dt: float,
-              num_substeps: int, time0: float):
+              num_substeps: int, time0: float, mesh_x=None, mesh_v=None,
+              joint_verts_v=None, joint_faces_v=None):
         """``num_substeps`` substeps from ``time0``; returns (state, time).
-        Time advances in float32 steps of dt, as in the JAX frame scan."""
+        Time advances in float32 steps of dt, as in the JAX frame scan.
+        ``mesh_x`` is the collider mesh at the frame's start: substep s
+        sees ``mesh_x + (s dt) mesh_v``, computed on the device."""
         t = np.float32(time0)
         dt32 = np.float32(dt)
         grid_stage = self.grid_stage()
-        for _ in range(num_substeps):
+        as_dev = lambda a: None if a is None else torch.as_tensor(
+            a, dtype=torch.float32, device=self.device)
+        mesh_x, mesh_v = as_dev(mesh_x), as_dev(mesh_v)
+        joints = dict(joint_verts_v=as_dev(joint_verts_v),
+                      joint_faces_v=as_dev(joint_faces_v))
+        for s in range(num_substeps):
+            mx = None if mesh_x is None else \
+                mesh_x + float(np.float32(s) * dt32) * mesh_v
             state = stepping.p2g2p(self.cfg, self.colliders, state, model,
-                                   float(dt32), float(t), grid_stage)
+                                   float(dt32), float(t), mesh_x=mx,
+                                   mesh_v=mesh_v, grid_stage=grid_stage,
+                                   **joints)
             t = np.float32(t + dt32)
         return state, float(t)
 

@@ -19,9 +19,10 @@ from mpmavatar_tpu_torch.core.types import (MPMStaticConfig, build_cloth,
                                             make_state)
 from mpmavatar_tpu_torch.ops import _build
 from mpmavatar_tpu_torch.ops import grid_pipeline as gp
+from mpmavatar_tpu_torch.ops import splat as ksplat
 from mpmavatar_tpu_torch.ops import stress as kstress
 from mpmavatar_tpu_torch.ops import transfer as ktr
-from mpmavatar_tpu_torch.sim import MPMSolver
+from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +76,80 @@ def test_p2g_kernel_matches_plain(dev):
             cfg.inv_dx, cfg.dx)
     for a, b in zip(ktr.p2g(*args), ktr.p2g_plain(*args)):
         assert _rel_err(a, b) < 1e-5
+
+
+def test_p2g_kernel_wraps_negative_flat_indices(dev):
+    """Particles at base (-1, -1, -1) and past the far end: the kernel
+    wraps a flat index in [-G^3, 0) and drops the rest, as the plain
+    version (and JAX's scatter) does."""
+    G, n = 16, 8
+    x = torch.full((n, 3), 0.01, device=dev)
+    x[4:] = 1.97
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    args = (x, rnd(n, 3), rnd(n, 3, 3), torch.full((n,), 1e-3, device=dev),
+            torch.ones(n, device=dev), DT * rnd(n, 3, 3),
+            torch.zeros((0, 3), device=dev), G, G / 2.0, 2.0 / G)
+    out, ref = ktr.p2g(*args), ktr.p2g_plain(*args)
+    assert float(ref[1].reshape(G, G, G)[G - 1].sum()) > 0.0
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-5
+
+
+def _splat_points(dev, n=500, G=32, seed=0):
+    """Random points with some at base G - 3 and some below 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dx = 2.0 / G
+    pts = 0.1 + 1.8 * torch.rand((n, 3), generator=gen, device=dev)
+    pts[:20, 0] = (G - 2.3) * dx + 0.4 * dx * torch.rand(
+        20, generator=gen, device=dev)
+    pts[20:40, 1] = -0.2 * torch.rand(20, generator=gen, device=dev)
+    pts[40:60] = 0.2 * dx
+    return pts
+
+
+@pytest.mark.parametrize("ch", [3, 6])
+@pytest.mark.parametrize("bounds_check", [True, False])
+def test_splat_kernel_matches_plain(dev, ch, bounds_check):
+    G = 32
+    pts = _splat_points(dev, G=G)
+    vals = torch.randn((pts.shape[0], ch), device=dev)
+    before = _build.launch_counts().get(ksplat.KERNEL, 0)
+    out = ksplat.splat(pts, vals, G, G / 2.0, bounds_check)
+    assert _build.launch_counts()[ksplat.KERNEL] == before + 1
+    ref = ksplat.splat_plain(pts, vals, G, G / 2.0, bounds_check)
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-5
+
+
+def _sand_set(dev, t=2000, seed=0):
+    """tests/test_pallas_stress.py::_sand_inputs, built here without JAX:
+    expanding (tip), compressing (cone) and reflected cases."""
+    gen = torch.Generator().manual_seed(seed)
+    f_trial = torch.eye(3) + 0.15 * torch.randn((t, 3, 3), generator=gen)
+    f_trial[: t // 8] *= 1.5
+    f_trial[t // 8: t // 4] *= 0.5
+    f_trial[t // 4] = torch.diag(torch.tensor([1.0, 1.0, -1.0])) \
+        @ f_trial[t // 4]
+    f_prev = torch.eye(3) + 0.05 * torch.randn((t, 3, 3), generator=gen)
+    sel = (torch.rand(t, generator=gen) > 0.2).float()
+    return [a.to(dev) for a in (f_trial, f_prev, sel, torch.full((t,), 400.0),
+                                torch.full((t,), 600.0), torch.tensor(0.3))]
+
+
+def test_sand_kernel_matches_plain(dev):
+    args = _sand_set(dev)
+    before = _build.launch_counts().get(kstress.SAND_KERNEL, 0)
+    f_new, stress, branch = kstress.sand_stress(*args, return_branch=True)
+    assert _build.launch_counts()[kstress.SAND_KERNEL] == before + 1
+    f_ref, st_ref, b_ref = kstress.sand_stress_plain(*args,
+                                                     return_branch=True)
+    same = branch == b_ref
+    assert int((~same).sum()) <= 2
+    assert torch.equal(torch.isnan(stress), torch.isnan(st_ref))
+    ok = same & ~torch.isnan(st_ref).flatten(1).any(1)
+    assert float((f_new - f_ref)[ok].abs().max()) < 2e-5
+    assert float((stress - st_ref)[ok].abs().max()) / 400.0 < 3e-5
 
 
 def test_g2p_kernel_matches_plain(dev):
@@ -135,13 +210,44 @@ def test_p2g2p_goes_through_every_kernel_and_matches_the_cpu(dev):
 
 
 def test_sand_needs_k8_on_cuda(dev):
-    n = 8
+    """Sand (material 2) takes K8 in compute_stress on the card, and
+    agrees with the plain route on the CPU."""
+    n = 300
     cfg = MPMStaticConfig(n_elements=0, n_traditional=n, n_vertices=0,
                           n_grid=16, material=2)
-    x = 0.8 + 0.4 * torch.rand((n, 3))
-    state = make_state(cfg, x, vol=torch.full((n,), 1e-6), device=dev)
-    with pytest.raises(NotImplementedError, match="K8"):
-        stepping.compute_stress(cfg, state, make_model(n, device=dev), DT)
+    gen = torch.Generator().manual_seed(0)
+    x = 0.8 + 0.4 * torch.rand((n, 3), generator=gen)
+    state = make_state(cfg, x, vol=torch.full((n,), 1e-6), device="cpu")
+    state = dataclasses.replace(state, F_trial=torch.eye(3) + 0.1 * torch.randn(
+        (n, 3, 3), generator=gen))
+    model = make_model(n, device="cpu")
+    _build.reset_launch_counts()
+    out = stepping.compute_stress(cfg, state.to(dev), model.to(dev), DT)
+    assert _build.launch_counts() == {kstress.SAND_KERNEL: 1}
+    ref = stepping.compute_stress(cfg, state, model, DT)
+    assert float((out[1].cpu() - ref[1]).abs().max()) < 2e-5
+    assert float((out[3].cpu() - ref[3]).abs().max()) \
+        / float(model.mu[0]) < 3e-5
+
+
+def test_bench_substep_goes_through_every_kernel(dev):
+    """The bench scene (collider, mover, floor, sand) at a small size:
+    K1, K8, K2, K5, K3 once and K4 twice per substep, and the kernel path
+    against the plain path on the CPU."""
+    solver, state, model, scene = bench_scene.build(32, sand=300, nx=12,
+                                                    device=dev)
+    cpu, st_c, m_c, sc_c = bench_scene.build(32, sand=300, nx=12,
+                                             device="cpu")
+    _build.reset_launch_counts()
+    out, _ = solver.frame(state, model, DT, 5, 0.0, **scene)
+    assert _build.launch_counts() == {
+        "cloth_stress": 5, "sand_stress": 5, "p2g": 5, "splat": 10,
+        "grid_pipeline": 5, "g2p": 5}
+    ref, _ = cpu.frame(st_c, m_c, DT, 5, 0.0, **sc_c)
+    for name, atol in (("x", 2e-5), ("v", 1e-3)):
+        err = float((getattr(out, name).cpu() - getattr(ref, name)).abs()
+                    .max())
+        assert err < atol, (name, err)
 
 
 def test_wrappers_reject_wrong_dtype(dev):

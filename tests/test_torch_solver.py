@@ -11,8 +11,10 @@ import torch
 from test_substep_golden import build_pair, make_cloth
 from test_torch_core import assert_close, port_collider, port_of
 
+from mpmavatar_tpu.core import types as jtypes
 from mpmavatar_tpu.sim import MPMSolver as JSolver
 
+from mpmavatar_tpu_torch import convert
 from mpmavatar_tpu_torch.core import stepping
 from mpmavatar_tpu_torch.core.types import MPMStaticConfig
 from mpmavatar_tpu_torch.sim import MPMSolver, cloth_drop
@@ -91,13 +93,24 @@ def test_registration_matches_jax_solver():
 
 
 def test_mesh_collider_and_mover_registration_need_k4():
-    cfg = MPMStaticConfig(n_elements=0, n_traditional=4, n_vertices=0,
-                          n_grid=8)
-    solver = MPMSolver(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K4"):
-        solver.add_mesh_collider(np.zeros((1, 3), np.int32), friction=0.5)
-    with pytest.raises(NotImplementedError, match="K4"):
-        solver.add_particle_mover()
+    """Registering a body-mesh collider and the mover (both run through
+    K4, the splat) builds what the JAX solver's registration builds."""
+    cfg = jtypes.MPMStaticConfig(n_elements=0, n_traditional=4,
+                                 n_vertices=0, n_grid=8)
+    faces = np.arange(12, dtype=np.int32).reshape(4, 3)
+    js = JSolver(cfg)
+    ts = MPMSolver(MPMStaticConfig(**dataclasses.asdict(cfg)), device="cpu")
+    for s in (js, ts):
+        s.add_mesh_collider(faces, friction=0.5)
+        s.add_particle_mover()
+    assert ts.colliders.use_particle_mover
+    jmc = js.colliders.mesh_colliders[0]
+    ref = convert.mesh_collider_from_numpy(np.asarray(jmc.faces),
+                                           np.asarray(jmc.friction), "cpu")
+    (out,) = ts.colliders.mesh_colliders
+    assert out.faces.dtype == torch.int64
+    assert torch.equal(out.faces, ref.faces)
+    assert float(out.friction) == float(ref.friction) == 0.5
 
 
 def test_grid_stage_is_bound_once_per_collider_set():

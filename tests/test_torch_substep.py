@@ -18,6 +18,7 @@ from mpmavatar_tpu.core import types as jtypes
 
 from mpmavatar_tpu_torch.core import colliders as tcol
 from mpmavatar_tpu_torch.core import stepping as tstep
+from mpmavatar_tpu_torch.ops import splat as tsplat
 
 torch.set_num_threads(1)
 
@@ -125,13 +126,28 @@ def test_unfused_path_with_impulses_and_modifiers_matches_jax():
         assert_close(getattr(out, name), getattr(ref, name), atol, name)
 
 
-def test_mesh_collider_and_mover_need_k4():
+def test_mesh_collider_and_mover_need_k4(monkeypatch):
+    """With a mesh collider and the mover registered, a substep splats
+    twice through K4's wrapper (collider faces with 6 channels, joint
+    points with 3), and a missing collider mesh raises."""
     cfg, state, model = __graft_entry__._build_cloth_scene(nx=4, ny=4,
                                                            n_grid=16)
+    cfg = dataclasses.replace(cfg, num_joint_v=3, num_joint_f=2)
     tcfg, tst, tm = port_of(cfg, state, model)
-    mesh = tcol.MeshCollider(faces=torch.zeros((1, 3), dtype=torch.int32),
+    mesh_x = torch.tensor([[0.9, 0.9, 0.9], [1.1, 0.9, 0.9],
+                           [1.0, 0.9, 1.1]])
+    mesh = tcol.MeshCollider(faces=torch.tensor([[0, 1, 2]]),
                              friction=torch.tensor(0.5))
-    for colliders in (tcol.ColliderSet(mesh_colliders=(mesh,)),
-                      tcol.ColliderSet(use_particle_mover=True)):
-        with pytest.raises(NotImplementedError, match="K4"):
-            tstep.p2g2p(tcfg, colliders, tst, tm, 1e-4, 0.0)
+    colliders = tcol.ColliderSet(mesh_colliders=(mesh,),
+                                 use_particle_mover=True)
+    calls = []
+    real = tsplat.splat
+    monkeypatch.setattr(tsplat, "splat", lambda p, v, *a, **k: (
+        calls.append((p.shape[0], v.shape[1])) or real(p, v, *a, **k)))
+    tstep.p2g2p(tcfg, colliders, tst, tm, 1e-4, 0.0, mesh_x=mesh_x,
+                mesh_v=torch.zeros_like(mesh_x),
+                joint_verts_v=torch.zeros((3, 3)),
+                joint_faces_v=torch.zeros((2, 3)))
+    assert calls == [(1, 6), (5, 3)]
+    with pytest.raises(ValueError, match="mesh_x"):
+        tstep.p2g2p(tcfg, colliders, tst, tm, 1e-4, 0.0)

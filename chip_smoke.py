@@ -39,7 +39,20 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      - a contact scene (the bench scene cut to a 48 x 48 cloth, 64^3 and
        3,000 sand particles, the sphere's top under the cloth rising into
        it), beside two wrong paths (collider friction 0; the mover left
-       out).
+       out);
+  6. the render path (render/bench_render.py's scenes at full width): the
+     stage-2 avatar (50,244 splats of 65,536, SH 3, shadow UNet 256^2,
+     1500 x 1000) through render_avatar_frame, and the two 1080p splat
+     scenes (50,000 gaussians, small and big) through rasterize, each for
+     RENDER_FRAMES frames with the launch counters reset just before and
+     read just after (2 K6 launches per frame, no other kernel), zero
+     overflow, and a profile of one more frame; K6 against its plain
+     version on each scene's own worklists (avatar phases 1 and 2 at
+     C = 32, big_splats' phase 2 at C = 128) and on a sentinel-only batch,
+     the alpha-cutoff ties counted; the avatar frame through K6 against
+     the frame through the plain version, beside a wrong path (compositing
+     back to front); one gaussian on a 1080p frame against the analytic
+     alpha.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -113,6 +126,23 @@ CONTACT = dict(grid=64, sand=3000, nx=48, body_center=(1.0, 1.03, 1.0),
                body_r=0.25)
 CONTACT_MESH_V = (0.0, 0.5, 0.0)
 
+# the render path (phase 6): frames per scene; K6 against its plain
+# version as max |a - b| / max |plain| per output on the pixels with no
+# alpha within CUTOFF_BAND (relative) of the 1/255 cutoff (there expf and
+# torch.exp may fall on either side; such pixels are counted, and no pixel
+# outside them may differ by more than K6_REL_TOL); the avatar frame
+# through K6 against the frame through the plain version, max abs over
+# image and alpha on the frame's pixels with no such tie (a flipped
+# cutoff moves a pixel by up to 1/255 of its colour; those pixels are
+# counted and their largest difference printed), with a wrong path (back
+# to front) read beside it; one gaussian's alpha against
+# o exp(-d^T conic d / 2) in float64
+RENDER_FRAMES = 4
+K6_REL_TOL = 1e-5
+CUTOFF_BAND = 1e-4
+FRAME_TOL = 1e-5
+ANALYTIC_TOL = 1e-5
+
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
 CSRC = "mpmavatar_tpu_torch/ops/csrc/"
@@ -163,11 +193,11 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return event_ms(graph.replay, reps, inner, warmup=2)
 
 
-def profile_substeps(solver, state, model, t, n: int, scene):
-    """torch.profiler over ``n`` substeps: (device-busy seconds, profiled
-    wall seconds, [(kernel name, device us, launches)] by device time).
-    Only the device-side entries are summed: an operator's entry repeats
-    the time of the kernels it launched."""
+def profile_device(fn):
+    """torch.profiler over one call of ``fn``: (device-busy seconds,
+    profiled wall seconds, [(kernel name, device us, launches)] by device
+    time).  Only the device-side entries are summed: an operator's entry
+    repeats the time of the kernels it launched."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,7 +205,7 @@ def profile_substeps(solver, state, model, t, n: int, scene):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver.frame(state, model, DT, n, t, **scene)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -237,8 +267,8 @@ def drive(name, solver, state, model, scene, frames, substeps, expect):
           f"times {[round(s, 4) for s in frame_s]} s; steady frame "
           f"{ms_sub:.4f} ms/substep = {1e3 / ms_sub:.1f} substeps/s")
 
-    busy_s, prof_wall, rows = profile_substeps(solver, state, model, t,
-                                               PROFILE_SUBSTEPS, scene)
+    busy_s, prof_wall, rows = profile_device(
+        lambda: solver.frame(state, model, DT, PROFILE_SUBSTEPS, t, **scene))
     n = PROFILE_SUBSTEPS
     table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
                       for key, us, calls in rows)
@@ -266,6 +296,237 @@ def sphere_depth(x, center, r):
     import torch
     c = torch.tensor(center, dtype=x.dtype, device=x.device)
     return float((r - (x - c).norm(dim=1)).max())
+
+
+def k6_inputs(frame):
+    """The (pgT, pix0) of each K6 call of one more ``frame``."""
+    from unittest import mock
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.render import rasterizer
+    calls = []
+
+    def record(pgT, pix0, nc):
+        calls.append((pgT, pix0))
+        return kcomp.segment_composite(pgT, pix0, nc)
+
+    with mock.patch.object(rasterizer, "segment_composite", record):
+        frame()
+    return calls
+
+
+def render_path(dev, check) -> dict:
+    """Phase 6: each render scene driven with the launch counters reset
+    just before and read just after, K6 against its plain version on the
+    scenes' own worklists, the kernel-path frame against the plain-path
+    frame beside a wrong path, and the analytic single gaussian.  Returns
+    scene -> (steady ms/frame, launches)."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.render import (bench_render, camera_arrays,
+                                            rasterize, rasterizer)
+
+    nc = 3
+    scenes = {}
+    for name in bench_render.SCENES:
+        t0 = time.perf_counter()
+        frame, info = bench_render.make_scene(name, dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        _build.reset_launch_counts()
+        frame_s = []
+        for _ in range(RENDER_FRAMES):
+            t_f = time.perf_counter()
+            img, out = frame()
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t_f)
+        launches = _build.launch_counts()
+        want = {kcomp.KERNEL: 2 * RENDER_FRAMES}
+        if launches != want:
+            raise AssertionError(f"render {name}: launches {launches}, "
+                                 f"expected {want}")
+        bench_render.check_overflow(out, name)
+        if img.shape != (nc, info["height"], info["width"]) or \
+                not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"render {name}: image {tuple(img.shape)} "
+                                 "not finite or of the wrong shape")
+        ms = 1e3 * frame_s[-1]
+        counts = out["tile_counts"]
+        print(f"render {name} ({info['width']}x{info['height']}, "
+              f"{info['gaussians']} gaussians): set-up {setup_s:.2f} s; "
+              f"launches {launches} in {RENDER_FRAMES} frames; frame wall "
+              f"times {[round(1e3 * f, 3) for f in frame_s]} ms; "
+              f"{counts.numel()} tiles, {int(counts.sum())} instances "
+              f"(most on one tile {int(counts.max())}), phase-2 items "
+              f"{int(out['n_items'])} of work_cap {info['work_cap']}; "
+              f"alpha mean {float(out['alpha'].mean()):.4f}")
+        busy_s, prof_wall, rows = profile_device(frame)
+        (OUT / f"chip_smoke_profile_render_{name}.txt").write_text(
+            "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                      for key, us, calls in rows) + "\n")
+        if rows:
+            idle = 100 * max(0.0, 1 - busy_s / (ms * 1e-3))
+            print(f"  profile of one frame: device busy {1e3 * busy_s:.4f} "
+                  f"ms in {sum(r[2] for r in rows)} kernels, "
+                  f"{1e3 * prof_wall:.4f} ms profiled wall; against the "
+                  f"unprofiled steady frame ({ms:.4f} ms) the device is "
+                  f"idle {idle:.1f}% of the time")
+            for key, us, calls in rows[:8]:
+                print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
+        else:
+            print("  the profiler recorded no device time; device busy "
+                  "share not measured")
+        scenes[name] = dict(frame=frame, img=img, out=out, ms=ms,
+                            launches=launches, calls=k6_inputs(frame))
+
+    # K6 against its plain version on the scenes' own worklists
+    def k6_check(label, pg, pix, launches_of):
+        out = kcomp.segment_composite(pg, pix, nc)
+        ref = kcomp.segment_composite_plain(pg, pix, nc)
+        _, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+        near = (alpha - kcomp.ALPHA_MIN).abs() \
+            < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
+        n_near, tied = int(near.sum()), near.any(1)          # (W, P)
+        del alpha, near
+        diff = (out - ref).abs()                             # (W, nc+1, P)
+        keep = ~tied
+        rel = [float(diff[:, k][keep].max())
+               / max(float(ref[:, k].abs().max()), 1e-30)
+               for k in range(nc + 1)]
+        off = diff.amax(1) > K6_REL_TOL                      # (W, P)
+        n_off, off_untied = int(off.sum()), int((off & keep).sum())
+        err_abs = float(diff.amax(1)[keep].max())
+        ok = max(rel) <= K6_REL_TOL and off_untied == 0
+        W, _, C = pg.shape
+        verdict = (f"W={W}, C={C}: {n_near} evaluations within "
+                   f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
+                   f"pixels; {n_off} pixels differ by more than "
+                   f"{K6_REL_TOL:.0e} ({off_untied} of them untied); on the "
+                   f"untied pixels max rel err per output "
+                   f"{[f'{r:.2e}' for r in rel]} (tol {K6_REL_TOL:.0e}), "
+                   f"max_abs_err {err_abs:.3e};")
+        # bytes: the packed worklist in ((6+nc) C + 2 floats per item) and
+        # the segments out ((nc+1) 256 floats per item); operations: ~20
+        # FP32 per (gaussian, pixel), expf included, on the slots that hold
+        # a gaussian of nonzero opacity (the sentinels that pad the tiles
+        # and fill phase 2 past n_items, and the dead splats, leave a
+        # segment as it is)
+        live = int((pg[:, 5 + nc] > 0).sum())
+        check("composite", [out], [ref], "composite.cu",
+              "mpmavatar_tpu/render/pallas_composite.py:87",
+              lambda: kcomp.segment_composite(pg, pix, nc),
+              lambda: kcomp.segment_composite_plain(pg, pix, nc),
+              4.0 * W * ((6 + nc) * C + 2 + (nc + 1) * 256),
+              20.0 * live * 256, launches_of, label=label,
+              err=(err_abs, ok, verdict),
+              extra={"items": W, "chunk": C, "live_slots": live,
+                     "near_cutoff_evaluations": n_near,
+                     "tied_pixels": int(tied.sum()),
+                     "pixels_over_tol": n_off})
+
+    av = scenes["avatar"]
+    (pg1, pix1), (pg2, pix2) = av["calls"]
+    k6_check("composite (avatar phase 1, every tile)", pg1, pix1,
+             av["launches"])
+    k6_check("composite (avatar phase 2, the worklist)", pg2, pix2,
+             av["launches"])
+    k6_check("composite (big_splats phase 2, C = 128)",
+             *scenes["big_splats"]["calls"][1],
+             scenes["big_splats"]["launches"])
+    sent = torch.zeros_like(pg2)
+    sent[:, 0:2] = -1e6
+    s_out = kcomp.segment_composite(sent, pix2, nc)
+    torch.cuda.synchronize()
+    if not (bool((s_out[:, :nc] == 0).all())
+            and bool((s_out[:, nc] == 1).all())):
+        raise AssertionError("K6 on sentinel-only items is not (0, 1)")
+    print(f"composite on {sent.shape[0]} sentinel-only items: colour exactly "
+          f"0, transmittance exactly 1")
+
+    # the avatar frame through K6 against the frame through the plain
+    # version, and a wrong path: compositing back to front
+    sorted_instances = rasterizer._sorted_instances
+
+    def back_to_front(means2d, depth, *args, **kw):
+        return sorted_instances(means2d, -depth, *args, **kw)
+
+    with mock.patch.object(rasterizer, "segment_composite",
+                           kcomp.segment_composite_plain):
+        img_p, out_p = av["frame"]()
+    with mock.patch.object(rasterizer, "_sorted_instances", back_to_front):
+        img_w, out_w = av["frame"]()
+    torch.cuda.synchronize()
+
+    # the frame's pixels where some K6 evaluation is near the cutoff
+    height, width = img_p.shape[1:]
+    tied = torch.zeros((height + 16, width + 16), dtype=torch.bool,
+                       device=dev)
+    for pg, pix in av["calls"]:
+        _, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+        item, p = ((alpha - kcomp.ALPHA_MIN).abs()
+                   < CUTOFF_BAND * kcomp.ALPHA_MIN).any(1).nonzero(
+            as_tuple=True)
+        del alpha
+        tied[pix[item, 1].long() + p // 16, pix[item, 0].long() + p % 16] \
+            = True
+    tied = tied[:height, :width]
+
+    def frame_err(img, out):
+        diff = torch.maximum((img - img_p).abs().amax(0),
+                             (out["alpha"] - out_p["alpha"]).abs()[0])
+        return (float(diff[~tied].max()), float(diff.max()),
+                int((diff > FRAME_TOL).sum()))
+
+    sound, sound_all, n_sound = frame_err(av["img"], av["out"])
+    wrong, _, n_wrong = frame_err(img_w, out_w)
+    print(f"avatar frame, K6 against the plain version: {int(tied.sum())} "
+          f"pixels with an alpha within {CUTOFF_BAND:.0e} of the cutoff; on "
+          f"the others max abs {sound:.3e} over image and alpha (tol "
+          f"{FRAME_TOL:.0e}); on all {sound_all:.3e}, {n_sound} pixels over "
+          f"the tol; wrong path (back to front): {wrong:.3e}, {n_wrong} "
+          f"pixels over the tol")
+    if not sound <= FRAME_TOL < wrong:
+        raise AssertionError(f"the frame limit {FRAME_TOL:.0e} does not "
+                             f"separate the kernel path ({sound:.3e}) from "
+                             f"the wrong path ({wrong:.3e})")
+
+    # one gaussian on a 1080p frame against the analytic alpha
+    from mpmavatar_tpu_torch.render.rasterizer import project_gaussians
+    cam = bench_render.look_down_z(1920, 1080, 1500.0, 3.0, 0.5, 20.0)
+    ca = camera_arrays(cam, dev)
+    means = torch.zeros((1, 3), device=dev)
+    # sigma 10 px: the 3-sigma rect (4 x 4 tiles) fits the default tiers
+    cov = (0.02 ** 2 * torch.eye(3, device=dev))[None]
+    opac = 0.8
+    _build.reset_launch_counts()
+    out = rasterize(means, torch.ones((1, 3), device=dev),
+                    torch.tensor([opac], device=dev), cov, ca,
+                    torch.zeros(3, device=dev), 1920, 1080, work_cap=8192)
+    launches = _build.launch_counts()
+    if launches != {kcomp.KERNEL: 2}:
+        raise AssertionError(f"analytic frame: launches {launches}")
+    bench_render.check_overflow(out, "analytic frame")
+    m2d, _, conic, _, _ = project_gaussians(means, cov, ca, 1920, 1080)
+    mu = m2d[0].double().cpu().numpy()
+    c = conic[0].double().cpu().numpy()
+    alpha = out["alpha"][0].cpu().numpy()
+    errs = []
+    for px, py in ((960, 540), (967, 535), (975, 548)):
+        dx, dy = px - mu[0], py - mu[1]
+        expect = opac * np.exp(-0.5 * (c[0] * dx * dx + c[2] * dy * dy)
+                               - c[1] * dx * dy)
+        expect = expect if expect >= kcomp.ALPHA_MIN else 0.0
+        errs.append(abs(float(alpha[py, px]) - expect))
+        print(f"  one gaussian: alpha at ({px}, {py}) {alpha[py, px]:.7f}, "
+              f"analytic {expect:.7f}")
+    print(f"one gaussian on a 1080p frame: launches {launches}; max error "
+          f"{max(errs):.3e} (tol {ANALYTIC_TOL:.0e})")
+    if max(errs) > ANALYTIC_TOL:
+        raise AssertionError("the single gaussian disagrees with the "
+                             "analytic alpha")
+    return {name: (sc["ms"], sc["launches"]) for name, sc in scenes.items()}
 
 
 def main() -> int:
@@ -822,14 +1083,21 @@ def main() -> int:
           f"{max(readings['kernel']['v']):.3e}) from wrong (v from "
           f"{min(readings['friction 0']['v'] + readings['no mover']['v']):.3e})")
 
+    # ---- 6. the render path -------------------------------------------
+    render = render_path(dev, check)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
-          f"{ms_b:.4f} ms/substep on {smi}; chip_smoke ran "
+          f"{ms_b:.4f} ms/substep; render "
+          + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
+          + f" ms/frame on {smi}; chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
         entry["launches_by_path"] = {
             "cloth_drop": launches.get(entry["name"], 0),
             "path_A": launches_a.get(entry["name"], 0),
-            "path_B": launches_b.get(entry["name"], 0)}
+            "path_B": launches_b.get(entry["name"], 0),
+            **{f"render_{name}": counts.get(entry["name"], 0)
+               for name, (_, counts) in render.items()}}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,12 @@ MPMModel from dicts of arrays keyed by field name (for example every
 field of a JAX ``MPMState`` after ``np.asarray``); ``to_numpy`` converts
 back.  ``mesh_collider_from_numpy`` carries a body-mesh collider's faces
 and friction, ``scene_from_numpy`` the per-rollout collider mesh and
-joint velocities (``mesh_x``, ``mesh_v``, ``joint_*_v``).  Tests use these
-so both packages start from identical data.
+joint velocities (``mesh_x``, ``mesh_v``, ``joint_*_v``).
+``gaussians_from_numpy``, ``avatar_params_from_numpy``,
+``mesh_avatar_from_numpy`` and ``camera_arrays_from_numpy`` carry the
+render inputs (splats, the avatar's learnables with its shadow UNet, its
+static assets, a device camera).  Tests use these so both packages start
+from identical data.
 """
 
 from __future__ import annotations
@@ -20,8 +24,12 @@ import torch
 from . import resolve_device
 from .core.colliders import MeshCollider
 from .core.types import MPMModel, MPMState
+from .render.avatar_model import AvatarParams, MeshAvatar
+from .render.gaussians import GaussianParams
+from .render.rasterizer import CameraArrays
 
 _INT_FIELDS = ("selection", "faces")
+_DTYPES = {"binding": torch.int64, "alive": torch.bool}
 
 
 def _from_numpy(cls, arrays: dict, device):
@@ -62,3 +70,39 @@ def to_numpy(obj) -> dict:
     """Field name -> numpy array for an MPMState or MPMModel."""
     return {f.name: getattr(obj, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(obj)}
+
+
+def _tensors(cls, arrays: dict, device):
+    device = resolve_device(device)
+    return cls(**{f.name: torch.tensor(np.asarray(arrays[f.name])).to(
+        device=device, dtype=_DTYPES.get(f.name, torch.float32))
+        for f in dataclasses.fields(cls)})
+
+
+def gaussians_from_numpy(arrays: dict, device=None) -> GaussianParams:
+    """GaussianParams from field name -> array (binding as int64, alive
+    as bool, the rest float32)."""
+    return _tensors(GaussianParams, arrays, device)
+
+
+def camera_arrays_from_numpy(arrays: dict, device=None) -> CameraArrays:
+    return _tensors(CameraArrays, arrays, device)
+
+
+def avatar_params_from_numpy(splats: dict, verts_offset, cam_m, cam_c,
+                             shadow: dict, device=None) -> AvatarParams:
+    """AvatarParams from the splats' and the shadow UNet's arrays by name
+    and the offset and calibration arrays."""
+    device = resolve_device(device)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return AvatarParams(splats=gaussians_from_numpy(splats, device),
+                        verts_offset=f32(verts_offset), cam_m=f32(cam_m),
+                        cam_c=f32(cam_c),
+                        shadow={k: f32(v) for k, v in shadow.items()})
+
+
+def mesh_avatar_from_numpy(arrays: dict) -> MeshAvatar:
+    """MeshAvatar from its fields by name (arrays stay numpy)."""
+    return MeshAvatar(**{f.name: arrays[f.name]
+                         for f in dataclasses.fields(MeshAvatar)
+                         if not f.name.startswith("_")})

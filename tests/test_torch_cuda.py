@@ -18,10 +18,12 @@ from mpmavatar_tpu_torch.core.types import (MPMStaticConfig, build_cloth,
                                             cloth_scene, make_model,
                                             make_state)
 from mpmavatar_tpu_torch.ops import _build
+from mpmavatar_tpu_torch.ops import composite as kcomp
 from mpmavatar_tpu_torch.ops import grid_pipeline as gp
 from mpmavatar_tpu_torch.ops import splat as ksplat
 from mpmavatar_tpu_torch.ops import stress as kstress
 from mpmavatar_tpu_torch.ops import transfer as ktr
+from mpmavatar_tpu_torch.render import bench_render
 from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene
 
 pytestmark = pytest.mark.cuda
@@ -255,3 +257,80 @@ def test_wrappers_reject_wrong_dtype(dev):
     with pytest.raises(TypeError):
         ktr.g2p(x, torch.zeros((8, 3), dtype=torch.float64, device=dev), 2,
                 1.0)
+
+
+def _composite_items(dev, w, c, nc=3, seed=0):
+    """Random K6 work items around their tiles, 30% sentinels."""
+    gen = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=gen)
+    pix0 = 16.0 * torch.randint(0, 8, (w, 2), generator=gen).float()
+    pg = torch.zeros((w, 6 + nc, c))
+    pg[:, 0:2] = pix0[:, :, None] + u(-6, 22, w, 2, c)
+    sx, sy, rho = u(1, 6, w, c), u(1, 6, w, c), u(-0.6, 0.6, w, c)
+    det = 1.0 - rho ** 2
+    pg[:, 2], pg[:, 3], pg[:, 4] = (1 / (sx ** 2 * det),
+                                    -rho / (sx * sy * det),
+                                    1 / (sy ** 2 * det))
+    pg[:, 5:5 + nc] = u(0, 1, w, nc, c)
+    pg[:, 5 + nc] = u(0.05, 1, w, c)
+    sent = torch.rand((w, c), generator=gen) > 0.7
+    pg.permute(0, 2, 1)[sent] = 0.0
+    pg[:, 0:2].permute(0, 2, 1)[sent] = -1e6
+    return pg.to(dev), pix0.to(dev)
+
+
+def _composite_err(out, ref, pg, pix0, nc=3):
+    """Max abs error on the pixels with no alpha near the 1/255 cutoff
+    (a rounding tie between expf and torch.exp), and their count."""
+    _, alpha = kcomp.segment_power_alpha(pg, pix0, nc)
+    tied = ((alpha - kcomp.ALPHA_MIN).abs() < 1e-4 * kcomp.ALPHA_MIN).any(1)
+    keep = ~tied[:, None, :].expand(out.shape)
+    return float((out - ref)[keep].abs().max()), int(tied.sum())
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_composite_kernel_matches_plain(dev, chunk):
+    pg, pix0 = _composite_items(dev, 300, chunk)
+    before = _build.launch_counts().get(kcomp.KERNEL, 0)
+    out = kcomp.segment_composite(pg, pix0, 3)
+    assert _build.launch_counts()[kcomp.KERNEL] == before + 1
+    ref = kcomp.segment_composite_plain(pg, pix0, 3)
+    err, tied = _composite_err(out, ref, pg, pix0)
+    assert err < 1e-5 and tied < 300 * 256 // 100
+
+
+def test_composite_kernel_sentinel_items_are_the_identity(dev):
+    pg = torch.zeros((64, 9, 32), device=dev)
+    pg[:, 0:2] = -1e6
+    pix0 = torch.zeros((64, 2), device=dev)
+    out = kcomp.segment_composite(pg, pix0, 3)
+    assert torch.equal(out[:, :3], torch.zeros_like(out[:, :3]))
+    assert torch.equal(out[:, 3], torch.ones_like(out[:, 3]))
+
+
+def test_composite_backward_on_cuda_raises(dev):
+    pg, pix0 = _composite_items(dev, 4, 32)
+    pg.requires_grad_(True)
+    out = kcomp.segment_composite(pg, pix0, 3)
+    with pytest.raises(NotImplementedError, match="K7"):
+        out.sum().backward()
+
+
+def test_avatar_render_launches_k6_twice_and_matches_the_cpu(dev):
+    """The render benchmark's avatar at a cut size: two K6 launches per
+    frame and no other kernel; the frame against the plain path on the
+    CPU."""
+    kw = dict(width=96, height=64, mesh=(20, 18))
+    frame, _ = bench_render.make_scene("avatar", dev, **kw)
+    _build.reset_launch_counts()
+    img, out = frame()
+    assert _build.launch_counts() == {kcomp.KERNEL: 2}
+    frame_cpu, _ = bench_render.make_scene("avatar", "cpu", **kw)
+    img_cpu, out_cpu = frame_cpu()
+    assert int(out["work_overflow"]) == 0 and int(out["big_overflow"]) == 0
+    assert torch.equal(out["tile_counts"].cpu(), out_cpu["tile_counts"])
+    # the two devices pose the mesh with other roundings, so a few pixels
+    # see an alpha cross the 1/255 cutoff or two near-tied depths swap
+    diff = (img.cpu() - img_cpu).abs()
+    assert int((diff > 1e-4).sum()) < diff.numel() // 100
+    assert float(diff.median()) < 1e-6

@@ -52,7 +52,23 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      the alpha-cutoff ties counted; the avatar frame through K6 against
      the frame through the plain version, beside a wrong path (compositing
      back to front); one gaussian on a 1080p frame against the analytic
-     alpha.
+     alpha;
+  7. the stage-2 train step (train/bench_appearance.py's scene: the
+     avatar of phase 6 with a seeded random GT, the full regularizer set,
+     per-group Adam) for TRAIN_STEPS steps with the launch counters reset
+     just before and read just after (2 K6 and 2 K7 launches per step, no
+     other kernel), steady ms/step (the median of the steps after
+     WARM_STEPS, with its range), peak memory and a profile of one more
+     step; K7 against its plain version on the step's own worklists and
+     cotangents (phases 1 and 2, captured with a hook), on big_splats'
+     C = 128 worklist and on a sentinel-only batch; the step's gradients
+     (every float leaf and the view-space gradient) through K7 against
+     the same step through the plain compositor, beside a wrong path (K7
+     with the transmittance cotangent dropped); SSIM's share of the step;
+     one densification pass (alive splats before and after, at least one
+     per face); LOSS_STEPS steps, the opacity group frozen, toward the
+     avatar rendered with a second seed's colours, whose L1 must fall by
+     more than through K7 with its colour rows zeroed.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -142,6 +158,24 @@ K6_REL_TOL = 1e-5
 CUTOFF_BAND = 1e-4
 FRAME_TOL = 1e-5
 ANALYTIC_TOL = 1e-5
+
+# the train path (phase 7): steps driven and counted (the steady step is
+# the median of those after the warm-up), steps toward the second seed's
+# colours; K7 against its plain version as max |a - b| /
+# max |plain| per parameter row, on the items with no evaluation within
+# CUTOFF_BAND of the cutoff (a flip there moves every gradient of the
+# pixel): each entry is a sum over 256 pixels of terms carried through the
+# T and S recurrences, against autograd's reverse cumulative sums in
+# another order; the step's gradients through K7 against the step through
+# the plain compositor, per leaf relative to its largest entry or to a
+# millionth of the step's largest gradient, whichever is larger (both
+# forwards are K6-exact to ~4e-7 and cutoff flips between expf and
+# torch.exp move a few pixels), with the wrong path read beside it
+TRAIN_STEPS = 7
+WARM_STEPS = 2
+LOSS_STEPS = 30
+K7_REL_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -298,19 +332,25 @@ def sphere_depth(x, center, r):
     return float((r - (x - c).norm(dim=1)).max())
 
 
-def k6_inputs(frame):
-    """The (pgT, pix0) of each K6 call of one more ``frame``."""
+def composite_calls(run):
+    """[pgT, pix0] of each K6 call of one more ``run``, and the cotangent
+    that K7 receives where ``run`` differentiates through the call (a
+    hook on the segment output keeps it)."""
     from unittest import mock
     from mpmavatar_tpu_torch.ops import composite as kcomp
     from mpmavatar_tpu_torch.render import rasterizer
     calls = []
 
     def record(pgT, pix0, nc):
-        calls.append((pgT, pix0))
-        return kcomp.segment_composite(pgT, pix0, nc)
+        out = kcomp.segment_composite(pgT, pix0, nc)
+        entry = [pgT.detach(), pix0]
+        if out.requires_grad:
+            out.register_hook(lambda g: entry.append(g.detach().clone()))
+        calls.append(entry)
+        return out
 
     with mock.patch.object(rasterizer, "segment_composite", record):
-        frame()
+        run()
     return calls
 
 
@@ -379,7 +419,7 @@ def render_path(dev, check) -> dict:
             print("  the profiler recorded no device time; device busy "
                   "share not measured")
         scenes[name] = dict(frame=frame, img=img, out=out, ms=ms,
-                            launches=launches, calls=k6_inputs(frame))
+                            launches=launches, calls=composite_calls(frame))
 
     # K6 against its plain version on the scenes' own worklists
     def k6_check(label, pg, pix, launches_of):
@@ -526,7 +566,316 @@ def render_path(dev, check) -> dict:
     if max(errs) > ANALYTIC_TOL:
         raise AssertionError("the single gaussian disagrees with the "
                              "analytic alpha")
-    return {name: (sc["ms"], sc["launches"]) for name, sc in scenes.items()}
+    return ({name: (sc["ms"], sc["launches"]) for name, sc in scenes.items()},
+            scenes["big_splats"]["calls"][1])
+
+
+def train_path(dev, check, big_call) -> tuple:
+    """Phase 7: the stage-2 train step driven with the launch counters
+    reset just before and read just after, K7 against its plain version,
+    the step against the plain-compositor step beside a wrong path, one
+    densification pass, and the loss falling toward a rendered GT.
+    Returns (steady ms/step, launches)."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import OptimizationParams
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.render import bench_render, rasterizer
+    from mpmavatar_tpu_torch.train import appearance as tapp
+    from mpmavatar_tpu_torch.train import bench_appearance as bapp
+    from mpmavatar_tpu_torch.utils import losses
+
+    nc = 3
+    raster = bench_render.AVATAR_RASTER
+    t0 = time.perf_counter()
+    avatar, params, n_faces, cam, gt_rgb, gt_msk, ao = bapp.build(dev)
+    opt = OptimizationParams()
+    optimizer = tapp.make_optimizer(opt, bapp.EXTENT, params)
+    step = tapp.make_train_step(avatar, opt, optimizer, bapp.ACTIVE_SH,
+                                False, **raster)
+    loss_and_grads = tapp.make_loss_and_grads(avatar, opt, bapp.ACTIVE_SH,
+                                              False, **raster)
+    args = (0, 0, cam[0], gt_rgb, gt_msk, ao, cam[1], cam[2])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    step_s, losses_seen = [], []
+    for _ in range(TRAIN_STEPS):
+        t_s = time.perf_counter()
+        loss, aux = step(params, *args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t_s)
+        losses_seen.append(float(loss))
+        bench_render.check_overflow(aux, "train step")
+    launches = _build.launch_counts()
+    want = {kcomp.KERNEL: 2 * TRAIN_STEPS, kcomp.KERNEL_BWD: 2 * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    if not all(np.isfinite(losses_seen)):
+        raise AssertionError(f"train: losses {losses_seen}")
+    peak = torch.cuda.max_memory_allocated()
+    steady = [1e3 * s for s in step_s[WARM_STEPS:]]
+    ms = statistics.median(steady)
+    print(f"train step (1500x1000, {params.splats.capacity} splats, "
+          f"{n_faces} alive): set-up {setup_s:.2f} s; launches {launches} "
+          f"in {TRAIN_STEPS} steps; step wall times "
+          f"{[round(1e3 * s, 3) for s in step_s]} ms; steady step (median "
+          f"of steps {WARM_STEPS + 1}-{TRAIN_STEPS}) {ms:.4f} ms, range "
+          f"{min(steady):.4f}-{max(steady):.4f} ms; losses "
+          f"{[round(v, 6) for v in losses_seen]}; phase-2 items "
+          f"{int(aux['n_items'])} of work_cap {raster['work_cap']}; peak "
+          f"allocated {peak / 2 ** 30:.3f} GiB")
+    busy_s, prof_wall, rows = profile_device(lambda: step(params, *args))
+    (OUT / "chip_smoke_profile_train_step.txt").write_text(
+        "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                  for key, us, calls in rows) + "\n")
+    if rows:
+        idle = 100 * max(0.0, 1 - busy_s / (ms * 1e-3))
+        print(f"  profile of one step: device busy {1e3 * busy_s:.4f} ms in "
+              f"{sum(r[2] for r in rows)} kernels, {1e3 * prof_wall:.4f} ms "
+              f"profiled wall; against the unprofiled steady step "
+              f"({ms:.4f} ms) the device is idle {idle:.1f}% of the time")
+        for key, us, calls in rows[:15]:
+            print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
+    else:
+        print("  the profiler recorded no device time; device busy share "
+              "not measured")
+
+    # the device time of the indexing backwards (scatter-adds of the
+    # gathers' gradients), by operator and input shapes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(params, *args)
+        torch.cuda.synchronize()
+    idx_rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        if "index_put" in e.key and us > 0:
+            idx_rows.append((float(us), e.key, str(e.input_shapes)[:120],
+                             int(e.count)))
+    idx_rows.sort(reverse=True)
+    print("  indexing backwards (index_put with accumulate) by input shapes:")
+    for us, key, shapes, count in idx_rows[:8]:
+        print(f"  {us:10.1f} us {count:3d}x  {key} {shapes}")
+
+    # SSIM's share: forward, and forward + backward, at the frame's shape
+    img = gt_rgb.flip(-1).contiguous().requires_grad_(True)
+    ssim_ms = event_ms(lambda: losses.ssim(img, gt_rgb), reps=3, inner=5)
+    ssim_bwd_ms = event_ms(lambda: torch.autograd.grad(
+        losses.ssim(img, gt_rgb), img), reps=3, inner=5)
+    print(f"  SSIM at 3x1000x1500 (band products, ~112 GFLOP forward): "
+          f"forward {ssim_ms:.4f} ms, forward + backward {ssim_bwd_ms:.4f} "
+          f"ms")
+
+    # K7 against its plain version on the step's own worklists
+    calls = composite_calls(lambda: loss_and_grads(params, *args))
+
+    def k7_check(label, pg, pix, g):
+        out = kcomp.segment_composite_vjp(pg, pix, g, nc)
+        ref = kcomp.segment_composite_vjp_plain(pg, pix, g, nc)
+        power, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+        near = (alpha - kcomp.ALPHA_MIN).abs() \
+            < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
+        n_near, tied = int(near.sum()), near.flatten(1).any(1)   # (W,)
+        n_pass = int(((power <= 0.0) & (alpha >= kcomp.ALPHA_MIN)).sum())
+        del power, alpha, near
+        keep = ~tied
+        diff = (out - ref).abs()[keep]                       # (w, 6+nc, C)
+        rel = [float(diff[:, r].max()) / max(float(ref[:, r].abs().max()),
+                                             1e-30)
+               for r in range(6 + nc)]
+        err_abs = float(diff.max())
+        ok = max(rel) <= K7_REL_TOL
+        W, _, C = pg.shape
+        live_of = pg[:, 5 + nc] > 0                          # (W, C)
+        live = int(live_of.sum())
+        live_items = int(live_of.any(1).sum())
+        verdict = (f"W={W}, C={C}: {n_near} evaluations within "
+                   f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
+                   f"items; on the other items max rel err per row "
+                   f"{[f'{r:.2e}' for r in rel]} (tol {K7_REL_TOL:.0e}), "
+                   f"max_abs_err {err_abs:.3e};")
+        # what the function needs from this data.  Bytes: the packed
+        # worklist in and d(worklist) out ((6+nc) C + 2 and (6+nc) C
+        # floats per item); the cotangent ((nc+1) 256 floats) only for the
+        # items that hold a live slot (elsewhere d(worklist) is 0 whatever
+        # g is).  Operations: ~20 FP32 per (live gaussian, pixel) to
+        # evaluate alpha (expf included), and ~50 more per evaluation that
+        # passes both cutoffs (the walk back, the parameter gradients and
+        # their sums over the pixels; a cut alpha leaves S and every
+        # gradient as they are)
+        check("composite_bwd", [out], [ref], "composite_bwd.cu",
+              "mpmavatar_tpu/render/pallas_composite.py:125",
+              lambda: kcomp.segment_composite_vjp(pg, pix, g, nc),
+              lambda: kcomp.segment_composite_vjp_plain(pg, pix, g, nc),
+              4.0 * (W * (2 * (6 + nc) * C + 2)
+                     + live_items * (nc + 1) * 256),
+              20.0 * live * 256 + 50.0 * n_pass, launches, label=label,
+              err=(err_abs, ok, verdict),
+              extra={"items": W, "chunk": C, "live_slots": live,
+                     "live_items": live_items, "passing_evaluations": n_pass,
+                     "near_cutoff_evaluations": n_near,
+                     "tied_items": int(tied.sum())})
+
+    (pg1, pix1, g1), (pg2, pix2, g2) = calls
+    k7_check("composite_bwd (train step phase 1, every tile)", pg1, pix1, g1)
+    k7_check("composite_bwd (train step phase 2, the worklist)", pg2, pix2,
+             g2)
+    pg_b, pix_b = big_call
+    g_b = torch.randn((pg_b.shape[0], nc + 1, 256), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(3))
+    k7_check("composite_bwd (big_splats phase 2, C = 128, seeded "
+             "cotangent)", pg_b, pix_b, g_b)
+    sent = torch.zeros_like(pg2)
+    sent[:, 0:2] = -1e6
+    s_out = kcomp.segment_composite_vjp(sent, pix2, g2, nc)
+    torch.cuda.synchronize()
+    if not bool((s_out == 0).all()):
+        raise AssertionError("K7 on sentinel-only items is not zero")
+    print(f"composite_bwd on {sent.shape[0]} sentinel-only items with the "
+          f"step's cotangent: exactly zero")
+
+    # the step's gradients through K7 against the plain compositor's, and
+    # a wrong path: K7 with the transmittance cotangent dropped
+    def step_grads(patch=None):
+        if patch is None:
+            loss, aux, grads = loss_and_grads(params, *args)
+        else:
+            with mock.patch.object(rasterizer, "segment_composite", patch):
+                loss, aux, grads = loss_and_grads(params, *args)
+        return loss, dict(grads, vgrad=aux["vgrad"])
+
+    loss_k, g_k = step_grads()
+    loss_p, g_p = step_grads(kcomp.segment_composite_plain)
+    loss_w, g_w = step_grads(wrong_k7("no_transmittance"))
+    torch.cuda.synchronize()
+
+    # the splats start isotropic, so the rotation's gradient is zero up to
+    # float noise: a leaf is held against a millionth of the step's
+    # largest gradient where its own largest is smaller
+    floor = 1e-6 * max(float(v.abs().max()) for v in g_p.values())
+
+    def step_err(g):
+        errs = {k: float((g[k] - g_p[k]).abs().max())
+                / max(float(g_p[k].abs().max()), floor) for k in g_p}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    sound, sound_leaf = step_err(g_k)
+    wrong, wrong_leaf = step_err(g_w)
+    print(f"train step through K6/K7 against the plain compositor: loss "
+          f"{float(loss_k):.7f} vs {float(loss_p):.7f}; gradients of "
+          f"{len(g_p)} leaves (vgrad included), max rel err {sound:.3e} "
+          f"({sound_leaf}; tol {STEP_GRAD_TOL:.0e}); wrong path (K7 without "
+          f"the transmittance cotangent): {wrong:.3e} ({wrong_leaf})")
+    if not sound <= STEP_GRAD_TOL < wrong:
+        raise AssertionError(f"the step limit {STEP_GRAD_TOL:.0e} does not "
+                             f"separate the kernel path ({sound:.3e}) from "
+                             f"the wrong path ({wrong:.3e})")
+
+    # one densification pass, as the stage-2 loop runs it
+    alive_before = int(params.splats.alive.sum())
+    alive_after, min_per_face = bapp.densify_pass(
+        avatar, params, n_faces, aux, opt,
+        torch.Generator(device=dev).manual_seed(0))
+    print(f"densification: alive splats {alive_before} -> {alive_after} of "
+          f"{params.splats.capacity}; fewest alive on a face {min_per_face}")
+    if min_per_face < 1 or alive_after <= 0:
+        raise AssertionError("densification left a face without a splat")
+
+    # the loss falls through K7, and not through K7 with its colour rows
+    # zeroed as far
+    sound = descent(dev, raster)
+    wrong = descent(dev, raster, wrong_k7("no_colour"))
+    fall, fall_w = sound[0] - sound[-1], wrong[0] - wrong[-1]
+    print(f"{LOSS_STEPS} steps toward the second seed's colours (opacity "
+          f"frozen): L1 {sound[0]:.7e} -> {sound[-1]:.7e} "
+          f"({[f'{v:.4e}' for v in sound[::5]]}); wrong path (K7 with its "
+          f"colour rows zeroed): {wrong[0]:.7e} -> {wrong[-1]:.7e} "
+          f"({[f'{v:.4e}' for v in wrong[::5]]})")
+    if not fall > max(fall_w, 0.0):
+        raise AssertionError(f"the L1 fell by {fall:.4e} through K7, not "
+                             f"more than the wrong path's {fall_w:.4e}")
+    return ms, launches
+
+
+def wrong_k7(mode: str):
+    """A segment_composite whose backward is K7 made wrong: the
+    transmittance cotangent dropped (``no_transmittance``) or the colour
+    rows of its result zeroed (``no_colour``)."""
+    import torch
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+
+    class Wrong(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, pgT, pix0, n):
+            ctx.save_for_backward(pgT, pix0)
+            ctx.n = n
+            return kcomp.segment_composite(pgT, pix0, n)
+
+        @staticmethod
+        def backward(ctx, g):
+            pgT, pix0 = ctx.saved_tensors
+            n = ctx.n
+            if mode == "no_transmittance":
+                g = g.clone()
+                g[:, n] = 0.0
+            d = kcomp.segment_composite_vjp(pgT, pix0, g, n)
+            if mode == "no_colour":
+                d[:, 5:5 + n] = 0.0
+            return d, None, None
+
+    return Wrong.apply
+
+
+def descent(dev, raster, patch=None) -> list:
+    """L1 over LOSS_STEPS train steps of the bench's scene toward the
+    avatar rendered with a second seed's colours at the start's opacity,
+    with the opacity group frozen (its regularizer's Adam sign steps move
+    every opacity by 0.05 in logit per step, with no image gradient at
+    all), through ``patch`` in place of segment_composite if given."""
+    import contextlib
+    from unittest import mock
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import OptimizationParams
+    from mpmavatar_tpu_torch.render import rasterizer, rgb2sh
+    from mpmavatar_tpu_torch.train import appearance as tapp
+    from mpmavatar_tpu_torch.train import bench_appearance as bapp
+
+    avatar, params, n_faces, cam, _, gt_msk, ao = bapp.build(dev)
+    colours = np.random.default_rng(1).random((n_faces, 3)).astype(
+        np.float32)
+    dc = params.splats.features_dc.clone()
+    dc[:n_faces, 0] = rgb2sh(torch.as_tensor(colours, device=dev))
+    with torch.no_grad():
+        gt, _ = tapp.render_avatar_frame(
+            avatar, dataclasses.replace(params, splats=dataclasses.replace(
+                params.splats, features_dc=dc)),
+            avatar.select_verts(params, 0), ao, cam, 0, bapp.ACTIVE_SH,
+            torch.zeros(3, device=dev), False, **raster)
+    gt = torch.clamp(gt, 0.0, 1.0)
+    opt = OptimizationParams()
+    optimizer = tapp.make_optimizer(opt, bapp.EXTENT, params)
+    for group in optimizer.param_groups:
+        if group["name"] == "opacity":
+            group["lr"] = 0.0
+    step = tapp.make_train_step(avatar, opt, optimizer, bapp.ACTIVE_SH,
+                                False, **raster)
+    l1 = []
+    with (mock.patch.object(rasterizer, "segment_composite", patch)
+          if patch else contextlib.nullcontext()):
+        for _ in range(LOSS_STEPS):
+            _, aux = step(params, 0, 0, cam[0], gt, gt_msk, ao, cam[1],
+                          cam[2])
+            l1.append(float(aux["l1"]))
+    return l1
 
 
 def main() -> int:
@@ -1084,12 +1433,15 @@ def main() -> int:
           f"{min(readings['friction 0']['v'] + readings['no mover']['v']):.3e})")
 
     # ---- 6. the render path -------------------------------------------
-    render = render_path(dev, check)
+    render, big_call = render_path(dev, check)
+
+    # ---- 7. the train path --------------------------------------------
+    train_ms, train_launches = train_path(dev, check, big_call)
 
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep; render "
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
-          + f" ms/frame on {smi}; chip_smoke ran "
+          + f" ms/frame; train step {train_ms:.4f} ms on {smi}; chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
         entry["launches_by_path"] = {
@@ -1097,7 +1449,8 @@ def main() -> int:
             "path_A": launches_a.get(entry["name"], 0),
             "path_B": launches_b.get(entry["name"], 0),
             **{f"render_{name}": counts.get(entry["name"], 0)
-               for name, (_, counts) in render.items()}}
+               for name, (_, counts) in render.items()},
+            "train_step": train_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,10 @@ joint velocities (``mesh_x``, ``mesh_v``, ``joint_*_v``).
 ``gaussians_from_numpy``, ``avatar_params_from_numpy``,
 ``mesh_avatar_from_numpy`` and ``camera_arrays_from_numpy`` carry the
 render inputs (splats, the avatar's learnables with its shadow UNet, its
-static assets, a device camera).  Tests use these so both packages start
+static assets, a device camera); ``densify_state_from_numpy`` the
+densification statistics (``to_numpy`` takes them back), and
+``float_grads_to_numpy`` the train step's gradients, nested as the JAX
+package's AvatarParams pytree.  Tests use these so both packages start
 from identical data.
 """
 
@@ -25,7 +28,7 @@ from . import resolve_device
 from .core.colliders import MeshCollider
 from .core.types import MPMModel, MPMState
 from .render.avatar_model import AvatarParams, MeshAvatar
-from .render.gaussians import GaussianParams
+from .render.gaussians import DensifyState, GaussianParams
 from .render.rasterizer import CameraArrays
 
 _INT_FIELDS = ("selection", "faces")
@@ -67,7 +70,8 @@ def scene_from_numpy(arrays: dict, device=None) -> dict:
 
 
 def to_numpy(obj) -> dict:
-    """Field name -> numpy array for an MPMState or MPMModel."""
+    """Field name -> numpy array for a dataclass of tensors (MPMState,
+    MPMModel, GaussianParams, DensifyState)."""
     return {f.name: getattr(obj, f.name).detach().cpu().numpy()
             for f in dataclasses.fields(obj)}
 
@@ -106,3 +110,22 @@ def mesh_avatar_from_numpy(arrays: dict) -> MeshAvatar:
     return MeshAvatar(**{f.name: arrays[f.name]
                          for f in dataclasses.fields(MeshAvatar)
                          if not f.name.startswith("_")})
+
+
+def densify_state_from_numpy(arrays: dict, device=None) -> DensifyState:
+    return _tensors(DensifyState, arrays, device)
+
+
+def float_grads_to_numpy(grads: dict) -> dict:
+    """The train step's gradients (name -> tensor, names as
+    ``train.appearance.float_leaves`` gives them) as nested numpy dicts:
+    {"splats": {...}, "verts_offset": ..., "cam_m": ..., "cam_c": ...,
+    "shadow": {...}}."""
+    out: dict = {}
+    for name, g in grads.items():
+        *path, leaf = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = g.detach().cpu().numpy()
+    return out

@@ -128,6 +128,7 @@ _SIGNATURES = {
     "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _I, _I, _I, _P, _P],
+    "launch_composite_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -1,17 +1,22 @@
-"""K6: segment compositing of the rasterizer's (tile, chunk) worklist.
+"""K6 and K7: segment compositing of the rasterizer's (tile, chunk)
+worklist and its VJP.
 
-``segment_composite`` launches the CUDA kernel of ``csrc/composite.cu``
-on CUDA tensors and runs ``segment_composite_plain`` on CPU tensors.  Both
-replace mpmavatar_tpu/render/pallas_composite.py::segment_composite (the
-forward ``_seg_pallas`` over ``_seg_math``): per work item, C
-depth-ordered gaussians against the 256 pixels of a 16x16 tile, giving nc
-colour planes and the transmittance of the segment, which the rasterizer
-merges per tile.
+``segment_composite`` launches K6, the CUDA kernel of
+``csrc/composite.cu``, on CUDA tensors and runs ``segment_composite_plain``
+on CPU tensors.  Both replace
+mpmavatar_tpu/render/pallas_composite.py::segment_composite (the forward
+``_seg_pallas`` over ``_seg_math``): per work item, C depth-ordered
+gaussians against the 256 pixels of a 16x16 tile, giving nc colour planes
+and the transmittance of the segment, which the rasterizer merges per
+tile.
 
-Gradient: on CPU tensors, autograd over the plain version (re-traced in
-the backward, as the JAX custom VJP's XLA path did).  On the card the
-backward is K7, the hand-written VJP kernel of the stage-2 training slice,
-which is not ported yet: it raises.
+Its backward is ``segment_composite_vjp``: K7, the CUDA kernel of
+``csrc/composite_bwd.cu``, on CUDA tensors (it launches or raises, never
+the plain version), and ``segment_composite_vjp_plain``, autograd over the
+plain forward, on CPU tensors.  Both replace the custom VJP's backward
+``_seg_bwd_pallas``; the tile origins get no gradient (JAX's returns
+zeros).  K6 and K7 count their launches apart (``KERNEL``,
+``KERNEL_BWD``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from . import _build
 
 KERNEL = "composite"
+KERNEL_BWD = "composite_bwd"
 TILE = 16
 ALPHA_MIN = 1.0 / 255.0
 PIXELS = TILE * TILE
@@ -82,6 +88,45 @@ def _launch(pgT, pix0, nc: int):
     return out
 
 
+def segment_composite_vjp_plain(pgT, pix0, g, nc: int):
+    """Plain PyTorch version of K7: the VJP of ``segment_composite_plain``
+    with cotangent ``g`` (W, nc+1, 256), by autograd -> (W, 6+nc, C)."""
+    with torch.enable_grad():
+        x = pgT.detach().requires_grad_(True)
+        out = segment_composite_plain(x, pix0, nc)
+        (dpg,) = torch.autograd.grad(out, x, g)
+    return dpg
+
+
+def _launch_bwd(pgT, pix0, g, nc: int):
+    pg = _build.check_cuda("pgT", pgT)
+    pix = _build.check_cuda("pix0", pix0)
+    gc = _build.check_cuda("g", g)
+    W, _, C = pg.shape
+    dpg = torch.empty_like(pg)
+    if W:
+        _build.launch(KERNEL_BWD, "launch_composite_bwd", pg.data_ptr(),
+                      pix.data_ptr(), gc.data_ptr(), W, C, nc,
+                      dpg.data_ptr(), _build.stream(pg.device))
+    return dpg
+
+
+def segment_composite_vjp(pgT, pix0, g, nc: int):
+    """d(packed worklist) of ``segment_composite`` for the cotangent ``g``
+    (W, nc+1, 256) of its segments.
+
+    On CUDA tensors this launches K7 (or raises); it runs the plain
+    version only for CPU tensors."""
+    _check(pgT, pix0, nc)
+    if g.shape != (pgT.shape[0], nc + 1, PIXELS):
+        raise ValueError(f"segment_composite_vjp: g must be "
+                         f"({pgT.shape[0]}, {nc + 1}, {PIXELS}), got "
+                         f"{tuple(g.shape)}")
+    if pgT.is_cuda:
+        return _launch_bwd(pgT, pix0, g, nc)
+    return segment_composite_vjp_plain(pgT, pix0, g, nc)
+
+
 class _SegmentComposite(torch.autograd.Function):
 
     @staticmethod
@@ -95,23 +140,14 @@ class _SegmentComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         pgT, pix0 = ctx.saved_tensors
-        if pgT.is_cuda:
-            raise NotImplementedError(
-                "segment_composite has no backward on the card yet: its "
-                "VJP is K7 (render/pallas_composite.py::_seg_bwd_pallas), "
-                "ported with the stage-2 training slice")
-        with torch.enable_grad():
-            x = pgT.detach().requires_grad_(True)
-            out = segment_composite_plain(x, pix0, ctx.nc)
-            (dpg,) = torch.autograd.grad(out, x, grad)
-        return dpg, None, None
+        return segment_composite_vjp(pgT, pix0, grad, ctx.nc), None, None
 
 
 def segment_composite(pgT, pix0, nc: int):
     """(W, 6+nc, C) packed worklist + (W, 2) tile origins ->
     (W, nc+1, 256) segments.
 
-    On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    On CUDA tensors this launches K6 (or raises), and its backward K7; it
+    runs the plain versions only for CPU tensors."""
     _check(pgT, pix0, nc)
     return _SegmentComposite.apply(pgT, pix0, nc)

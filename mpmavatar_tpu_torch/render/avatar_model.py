@@ -1,10 +1,12 @@
 """Mesh-bound Gaussian avatar, port of mpmavatar_tpu/render/avatar_model.py
-(the parameters, mesh posing and the asset loaders).
+(the parameters, mesh posing, the regularizer losses and the asset
+loaders).
 
 ``AvatarParams`` holds the learnables of the appearance stage (splats,
 per-frame vertex offsets, per-camera colour calibration, the shadow UNet);
-``MeshAvatar`` the static assets.  The regularizer losses belong to the
-stage-2 training slice and are not ported yet.
+``MeshAvatar`` the static assets.  The checkpoint pair
+(``save_avatar_checkpoint``/``load_avatar_checkpoint``) is not ported: it
+waits for the port of utils/io.py.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.linalg import cross, safe_norm
 from . import gaussians as G
 from .geometry import find_adjacent_faces
 from .shadow import init_shadow_unet
@@ -73,6 +76,46 @@ class MeshAvatar:
         """Mesh posing -> face frames."""
         return G.face_frames_from_verts(verts,
                                         self.tensor("faces", verts.device))
+
+    # ---- regularizers ------------------------------------------------
+    def normal_loss(self, verts):
+        """Mean |n . n_neighbour - 1| over each face's three neighbours."""
+        vf = verts[self.tensor("faces", verts.device)]
+        d3 = cross(vf[:, 1] - vf[:, 0], vf[:, 2] - vf[:, 0])
+        n = d3 / torch.clamp_min(safe_norm(d3, dim=1, keepdim=True), 1e-12)
+        nn = n[self.tensor("face_neighbors", verts.device)]
+        dot = torch.sum(n[:, None] * nn, -1).mean(-1)
+        return torch.mean(torch.abs(dot - 1.0))
+
+    def opacity_loss(self, params: AvatarParams):
+        alive = params.splats.alive
+        op = G.get_opacity(params.splats)[:, 0]
+        return torch.sum((1.0 - op) * alive) / torch.clamp_min(
+            torch.sum(alive), 1)
+
+    def iso_loss(self, verts):
+        """Face-centre distances to the neighbours against their rest
+        lengths, weighted.  Boundary faces list themselves as padding
+        neighbours; those rows are masked out, as the JAX package masks
+        them (a self offset is zero, and an ulp of it would be amplified
+        by d|off|/d off = off/|off|)."""
+        dev = verts.device
+        nbr = self.tensor("face_neighbors", dev)
+        self_mask = nbr == torch.arange(len(self.faces), device=dev)[:, None]
+        xyz = verts[self.tensor("faces", dev)].mean(1)
+        off = xyz[nbr] - xyz[:, None]
+        mag = torch.sqrt(torch.sum(off ** 2, -1) + 1e-20)
+        diff = (mag - self.tensor("neighbor_dist", dev)) ** 2
+        val = torch.where(self_mask, 0.0,
+                          diff * self.tensor("neighbor_weight", dev))
+        return torch.mean(torch.sqrt(val + 1e-20))
+
+    def area_loss(self, verts):
+        """Mean |area - mean area| over the faces."""
+        vf = verts[self.tensor("faces", verts.device)]
+        area = 0.5 * safe_norm(cross(vf[:, 1] - vf[:, 0],
+                                     vf[:, 2] - vf[:, 0]), dim=1)
+        return torch.mean(torch.abs(area - torch.mean(area)))
 
 
 def load_uv_coords(uv_path: str):

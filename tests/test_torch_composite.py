@@ -1,8 +1,8 @@
-"""K6 (segment compositing) of the PyTorch port against the JAX package:
-the plain version (and the CPU wrapper, which runs it) against
-pallas_composite.segment_composite in interpret mode at C = 32 and 128,
-an item made only of sentinels, and the CPU gradient against the JAX
-custom VJP (K7 in interpret mode).
+"""K6 (segment compositing) and K7 (its VJP) of the PyTorch port against
+the JAX package: the plain versions (and the CPU wrappers, which run them)
+against pallas_composite.segment_composite and _seg_bwd_pallas in
+interpret mode at C = 32 and 128, items made only of sentinels, and the
+CPU gradient against the JAX custom VJP.
 
 An alpha within 1e-4 (relative) of the 1/255 cutoff is a rounding tie
 between two exp implementations: the tests count the pixels with such an
@@ -116,6 +116,54 @@ def test_segment_composite_gradient_matches_jax_vjp():
         np.abs(grad.numpy() - ref) / scale, GRAD_TOL)
 
 
+@pytest.mark.parametrize("c", [32, 128])
+def test_segment_composite_vjp_plain_matches_pallas_interpret(c):
+    """K7's plain version against _seg_bwd_pallas in interpret mode, a
+    seeded cotangent on every row (the transmittance row too), means off
+    the pixel grid; per parameter row, relative to its largest gradient,
+    on the items with no alpha near the cutoff (a flip there moves every
+    gradient of the pixel).  The CPU wrapper of K7 runs the plain
+    version."""
+    pg, pix0 = _items(16, c, seed=100 + c)
+    keep = ~_tied_pixels(pg, pix0).any(axis=1)
+    assert keep.sum() >= 12
+    cot = np.random.default_rng(c).normal(size=(16, NC + 1, 256)).astype(
+        np.float32)
+    ref = np.asarray(jpc._seg_bwd_pallas(
+        jnp.asarray(pg), jnp.asarray(pix0), jnp.asarray(cot), NC,
+        jpc.pick_block(16), True))
+    out = tcomp.segment_composite_vjp_plain(t(pg), t(pix0), t(cot), NC)
+    assert out.shape == pg.shape
+    scale = np.abs(ref[keep]).max(axis=(0, 2), keepdims=True)
+    assert (scale > 0).all()
+    np.testing.assert_array_less(
+        np.abs(out.numpy()[keep] - ref[keep]) / scale, GRAD_TOL)
+    np.testing.assert_array_equal(
+        tcomp.segment_composite_vjp(t(pg), t(pix0), t(cot), NC).numpy(),
+        out.numpy())
+    # the transmittance cotangent reaches the geometry and opacity rows
+    cot_t = cot.copy()
+    cot_t[:, :NC] = 0.0
+    only_t = tcomp.segment_composite_vjp_plain(t(pg), t(pix0), t(cot_t),
+                                               NC).numpy()
+    assert np.abs(only_t[:, [0, 1, 2, 3, 4, 5 + NC]]).max() > 0.0
+    np.testing.assert_array_equal(only_t[:, 5:5 + NC], 0.0)
+
+
+def test_segment_composite_vjp_of_sentinel_items_is_zero():
+    """Items of sentinels only get an exactly zero gradient, as in JAX."""
+    pg = np.zeros((8, 6 + NC, 32), np.float32)
+    pg[:, 0:2] = -1e6
+    pix0 = (16.0 * np.arange(16, dtype=np.float32)).reshape(8, 2)
+    cot = np.random.default_rng(3).normal(size=(8, NC + 1, 256)).astype(
+        np.float32)
+    ref = np.asarray(jpc._seg_bwd_pallas(
+        jnp.asarray(pg), jnp.asarray(pix0), jnp.asarray(cot), NC, 8, True))
+    out = tcomp.segment_composite_vjp(t(pg), t(pix0), t(cot), NC).numpy()
+    np.testing.assert_array_equal(out, 0.0)
+    np.testing.assert_array_equal(ref, 0.0)
+
+
 def test_segment_composite_rejects_bad_shapes():
     pg, pix0 = _items(4, 32)
     with pytest.raises(ValueError):
@@ -124,3 +172,6 @@ def test_segment_composite_rejects_bad_shapes():
         tcomp.segment_composite(t(pg), t(pix0[:3]), NC)
     with pytest.raises(ValueError):
         tcomp.segment_composite(t(pg[:, :, :0]), t(pix0), NC)
+    with pytest.raises(ValueError):
+        tcomp.segment_composite_vjp(t(pg), t(pix0),
+                                    torch.zeros((4, NC, 256)), NC)

@@ -23,8 +23,11 @@ from mpmavatar_tpu_torch.ops import grid_pipeline as gp
 from mpmavatar_tpu_torch.ops import splat as ksplat
 from mpmavatar_tpu_torch.ops import stress as kstress
 from mpmavatar_tpu_torch.ops import transfer as ktr
+from mpmavatar_tpu_torch.data import OptimizationParams
 from mpmavatar_tpu_torch.render import bench_render
 from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene
+from mpmavatar_tpu_torch.train import appearance as tapp
+from mpmavatar_tpu_torch.train import bench_appearance
 
 pytestmark = pytest.mark.cuda
 
@@ -308,12 +311,57 @@ def test_composite_kernel_sentinel_items_are_the_identity(dev):
     assert torch.equal(out[:, 3], torch.ones_like(out[:, 3]))
 
 
-def test_composite_backward_on_cuda_raises(dev):
-    pg, pix0 = _composite_items(dev, 4, 32)
-    pg.requires_grad_(True)
-    out = kcomp.segment_composite(pg, pix0, 3)
-    with pytest.raises(NotImplementedError, match="K7"):
-        out.sum().backward()
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_composite_backward_kernel_matches_plain(dev, chunk):
+    """K7 against autograd over K6's plain version, per parameter row
+    relative to its largest gradient, on the items with no alpha near the
+    cutoff; the autograd backward of segment_composite launches K7."""
+    pg, pix0 = _composite_items(dev, 300, chunk, seed=1)
+    g = torch.randn((300, 4, 256), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev)
+    before = _build.launch_counts().get(kcomp.KERNEL_BWD, 0)
+    out = kcomp.segment_composite_vjp(pg, pix0, g, 3)
+    assert _build.launch_counts()[kcomp.KERNEL_BWD] == before + 1
+    ref = kcomp.segment_composite_vjp_plain(pg, pix0, g, 3)
+    _, alpha = kcomp.segment_power_alpha(pg, pix0, 3)
+    keep = ~((alpha - kcomp.ALPHA_MIN).abs()
+             < 1e-4 * kcomp.ALPHA_MIN).flatten(1).any(1)
+    assert int(keep.sum()) > 200
+    scale = ref[keep].abs().amax(dim=(0, 2))
+    err = (out - ref)[keep].abs().amax(dim=(0, 2)) / scale
+    assert float(err.max()) < 1e-4
+    x = pg.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(kcomp.segment_composite(x, pix0, 3), x, g)
+    assert _build.launch_counts()[kcomp.KERNEL_BWD] == before + 2
+    assert torch.equal(auto, out)
+
+
+def test_composite_backward_kernel_at_the_largest_shape(dev):
+    """nc = 8 and C = 512, the largest shape segment_composite takes: K7's
+    shared memory (59 KB) needs the opt-in above 48 KB.  At C = 512 nearly
+    every item has some alpha near the cutoff, so the gaussians with one
+    get opacity 0 (alpha 0, far from it) and every item is held."""
+    pg, pix0 = _composite_items(dev, 40, 512, nc=8, seed=4)
+    _, alpha = kcomp.segment_power_alpha(pg, pix0, 8)
+    tied = ((alpha - kcomp.ALPHA_MIN).abs()
+            < 1e-4 * kcomp.ALPHA_MIN).any(-1)                 # (W, C)
+    assert int(tied.sum()) < 40 * 512 // 20
+    pg[:, 13] = torch.where(tied, 0.0, pg[:, 13])
+    g = torch.randn((40, 9, 256), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    out = kcomp.segment_composite_vjp(pg, pix0, g, 8)
+    ref = kcomp.segment_composite_vjp_plain(pg, pix0, g, 8)
+    err = (out - ref).abs().amax(dim=(0, 2)) / ref.abs().amax(dim=(0, 2))
+    assert float(err.max()) < 1e-4
+
+
+def test_composite_backward_kernel_sentinel_items_give_zero(dev):
+    pg = torch.zeros((64, 9, 32), device=dev)
+    pg[:, 0:2] = -1e6
+    pix0 = torch.zeros((64, 2), device=dev)
+    g = torch.randn((64, 4, 256), device=dev)
+    out = kcomp.segment_composite_vjp(pg, pix0, g, 3)
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def test_avatar_render_launches_k6_twice_and_matches_the_cpu(dev):
@@ -334,3 +382,51 @@ def test_avatar_render_launches_k6_twice_and_matches_the_cpu(dev):
     diff = (img.cpu() - img_cpu).abs()
     assert int((diff > 1e-4).sum()) < diff.numel() // 100
     assert float(diff.median()) < 1e-6
+
+
+def _perturbed(params, device):
+    """The bench's parameters moved off their ties, the same on every
+    device: random offsets (at the rest pose every neighbour distance
+    equals its rest length up to rounding, where the iso term's gradient
+    is a rounding-decided sign), positions (the UV sphere's mirror-image
+    splats share depths exactly, and an ulp of posing swaps their order),
+    anisotropic scales and rotations (at isotropic scales the rotation's
+    gradient is noise)."""
+    gen = torch.Generator().manual_seed(3)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(device)
+    s = params.splats
+    return dataclasses.replace(
+        params, verts_offset=0.002 * rnd(*params.verts_offset.shape),
+        splats=dataclasses.replace(
+            s, xyz=0.3 * rnd(*s.xyz.shape),
+            scaling=s.scaling + 0.2 * rnd(*s.scaling.shape),
+            rotation=rnd(*s.rotation.shape)))
+
+
+def test_train_step_launches_k6_and_k7_twice_and_matches_the_cpu(dev):
+    """The train benchmark's scene at a cut size, moved off its ties: one
+    step's loss and gradients launch K6 twice and K7 twice and no other
+    kernel, and agree with the plain path on the CPU (the loss to 1e-5;
+    each float leaf and the view-space gradient per leaf relative to its
+    largest entry: the devices pose the mesh with other roundings)."""
+    kw = dict(width=96, height=64, mesh=(20, 18))
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        avatar, params, _, cam, gt, msk, ao = bench_appearance.build(device,
+                                                                     **kw)
+        params = _perturbed(params, device)
+        fn = tapp.make_loss_and_grads(
+            avatar, OptimizationParams(), bench_appearance.ACTIVE_SH, False,
+            tile_capacity=512, work_cap=64, chunk=32)
+        _build.reset_launch_counts()
+        loss, aux, grads = fn(params, 0, 0, cam[0], gt, msk, ao, *cam[1:])
+        runs[device.type] = (loss, aux, grads, _build.launch_counts())
+    loss, aux, grads, launches = runs["cuda"]
+    assert launches == {kcomp.KERNEL: 2, kcomp.KERNEL_BWD: 2}
+    loss_c, aux_c, grads_c, _ = runs["cpu"]
+    assert int(aux["work_overflow"]) == 0 and int(aux["n_items"]) > 0
+    assert abs(float(loss) - float(loss_c)) < 1e-5
+    pairs = [(grads[k], grads_c[k]) for k in grads]
+    pairs.append((aux["vgrad"], aux_c["vgrad"]))
+    for a, b in pairs:
+        assert _rel_err(a.cpu(), b) < 1e-4

@@ -46,11 +46,13 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      scenes (50,000 gaussians, small and big) through rasterize, each for
      RENDER_FRAMES frames with the launch counters reset just before and
      read just after (2 K6 launches per frame, no other kernel), zero
-     overflow, and a profile of one more frame; K6 against its plain
-     version on each scene's own worklists (avatar phases 1 and 2 at
-     C = 32, big_splats' phase 2 at C = 128) and on a sentinel-only batch,
-     the alpha-cutoff ties counted; the avatar frame through K6 against
-     the frame through the plain version, beside a wrong path (compositing
+     overflow, and a profile of one more frame; K6 (which gathers each
+     item's live rows of the parameter table itself and skips the
+     sentinel slots) against its gathered plain version on each scene's
+     own table and worklists (avatar phases 1 and 2 at C = 32,
+     big_splats' phase 2 at C = 128) and on sentinel-only items, the
+     alpha-cutoff ties counted; the avatar frame through K6 against the
+     frame through the plain version, beside a wrong path (compositing
      back to front); one gaussian on a 1080p frame against the analytic
      alpha;
   7. the stage-2 train step (train/bench_appearance.py's scene: the
@@ -59,9 +61,11 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      just before and read just after (2 K6 and 2 K7 launches per step, no
      other kernel), steady ms/step (the median of the steps after
      WARM_STEPS, with its range), peak memory and a profile of one more
-     step; K7 against its plain version on the step's own worklists and
+     step, and by input shape for the indexing backwards (none may be of
+     the worklists' (W, C) ids); K7 (d of the parameter table, added with
+     atomics) against its plain version on the step's own worklists and
      cotangents (phases 1 and 2, captured with a hook), on big_splats'
-     C = 128 worklist and on a sentinel-only batch; the step's gradients
+     C = 128 worklist and on sentinel-only items; the step's gradients
      (every float leaf and the view-space gradient) through K7 against
      the same step through the plain compositor, beside a wrong path (K7
      with the transmittance cotangent dropped); SSIM's share of the step;
@@ -333,25 +337,31 @@ def sphere_depth(x, center, r):
 
 
 def composite_calls(run):
-    """[pgT, pix0] of each K6 call of one more ``run``, and the cotangent
-    that K7 receives where ``run`` differentiates through the call (a
-    hook on the segment output keeps it)."""
+    """[packed, ids, pix0] of each K6 call of one more ``run``, and the
+    cotangent that K7 receives where ``run`` differentiates through the
+    call (a hook on the segment output keeps it)."""
     from unittest import mock
     from mpmavatar_tpu_torch.ops import composite as kcomp
     from mpmavatar_tpu_torch.render import rasterizer
     calls = []
 
-    def record(pgT, pix0, nc):
-        out = kcomp.segment_composite(pgT, pix0, nc)
-        entry = [pgT.detach(), pix0]
+    def record(packed, ids, pix0, nc):
+        out = kcomp.segment_composite_gather(packed, ids, pix0, nc)
+        entry = [packed.detach(), ids, pix0]
         if out.requires_grad:
             out.register_hook(lambda g: entry.append(g.detach().clone()))
         calls.append(entry)
         return out
 
-    with mock.patch.object(rasterizer, "segment_composite", record):
+    with mock.patch.object(rasterizer, "segment_composite_gather", record):
         run()
     return calls
+
+
+def live_slots(packed, ids, nc):
+    """(W, C) bool: the slots that hold a gaussian of nonzero opacity (the
+    sentinel row N has opacity 0, as have the dead splats)."""
+    return packed[:, 5 + nc][ids] > 0
 
 
 def render_path(dev, check) -> dict:
@@ -422,10 +432,11 @@ def render_path(dev, check) -> dict:
                             launches=launches, calls=composite_calls(frame))
 
     # K6 against its plain version on the scenes' own worklists
-    def k6_check(label, pg, pix, launches_of):
-        out = kcomp.segment_composite(pg, pix, nc)
-        ref = kcomp.segment_composite_plain(pg, pix, nc)
-        _, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+    def k6_check(label, packed, ids, pix, launches_of):
+        out = kcomp.segment_composite_gather(packed, ids, pix, nc)
+        ref = kcomp.segment_composite_gather_plain(packed, ids, pix, nc)
+        _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2),
+                                             pix, nc)
         near = (alpha - kcomp.ALPHA_MIN).abs() \
             < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
         n_near, tied = int(near.sum()), near.any(1)          # (W, P)
@@ -439,7 +450,10 @@ def render_path(dev, check) -> dict:
         n_off, off_untied = int(off.sum()), int((off & keep).sum())
         err_abs = float(diff.amax(1)[keep].max())
         ok = max(rel) <= K6_REL_TOL and off_untied == 0
-        W, _, C = pg.shape
+        W, C = ids.shape
+        sentinel = len(packed) - 1
+        filled = int((ids != sentinel).sum())
+        live = int(live_slots(packed, ids, nc).sum())
         verdict = (f"W={W}, C={C}: {n_near} evaluations within "
                    f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
                    f"pixels; {n_off} pixels differ by more than "
@@ -447,37 +461,40 @@ def render_path(dev, check) -> dict:
                    f"untied pixels max rel err per output "
                    f"{[f'{r:.2e}' for r in rel]} (tol {K6_REL_TOL:.0e}), "
                    f"max_abs_err {err_abs:.3e};")
-        # bytes: the packed worklist in ((6+nc) C + 2 floats per item) and
-        # the segments out ((nc+1) 256 floats per item); operations: ~20
-        # FP32 per (gaussian, pixel), expf included, on the slots that hold
-        # a gaussian of nonzero opacity (the sentinels that pad the tiles
-        # and fill phase 2 past n_items, and the dead splats, leave a
-        # segment as it is)
-        live = int((pg[:, 5 + nc] > 0).sum())
+        # what the function needs from this data.  Bytes: the ids (8 C per
+        # item), the rows of the live slots (a gaussian of nonzero
+        # opacity; the sentinels that pad the tiles and fill phase 2 past
+        # n_items, and the dead splats, leave a segment as it is), the
+        # tile origins (8 per item) and the segments out ((nc+1) 256
+        # floats per item); operations: ~20 FP32 per live (gaussian,
+        # pixel), expf included
         check("composite", [out], [ref], "composite.cu",
               "mpmavatar_tpu/render/pallas_composite.py:87",
-              lambda: kcomp.segment_composite(pg, pix, nc),
-              lambda: kcomp.segment_composite_plain(pg, pix, nc),
-              4.0 * W * ((6 + nc) * C + 2 + (nc + 1) * 256),
+              lambda: kcomp.segment_composite_gather(packed, ids, pix, nc),
+              lambda: kcomp.segment_composite_gather_plain(packed, ids, pix,
+                                                           nc),
+              8.0 * W * C + 4.0 * (live * (6 + nc) + 2 * W
+                                   + W * (nc + 1) * 256),
               20.0 * live * 256, launches_of, label=label,
               err=(err_abs, ok, verdict),
-              extra={"items": W, "chunk": C, "live_slots": live,
+              extra={"items": W, "chunk": C, "filled_slots": filled,
+                     "live_slots": live,
                      "near_cutoff_evaluations": n_near,
                      "tied_pixels": int(tied.sum()),
-                     "pixels_over_tol": n_off})
+                     "pixels_over_tol": n_off,
+                     **kcomp.kernel_info(C, nc)[kcomp.KERNEL]})
 
     av = scenes["avatar"]
-    (pg1, pix1), (pg2, pix2) = av["calls"]
-    k6_check("composite (avatar phase 1, every tile)", pg1, pix1,
+    (pk1, ids1, pix1), (pk2, ids2, pix2) = av["calls"]
+    k6_check("composite (avatar phase 1, every tile)", pk1, ids1, pix1,
              av["launches"])
-    k6_check("composite (avatar phase 2, the worklist)", pg2, pix2,
+    k6_check("composite (avatar phase 2, the worklist)", pk2, ids2, pix2,
              av["launches"])
     k6_check("composite (big_splats phase 2, C = 128)",
              *scenes["big_splats"]["calls"][1],
              scenes["big_splats"]["launches"])
-    sent = torch.zeros_like(pg2)
-    sent[:, 0:2] = -1e6
-    s_out = kcomp.segment_composite(sent, pix2, nc)
+    sent = torch.full_like(ids2, len(pk2) - 1)
+    s_out = kcomp.segment_composite_gather(pk2, sent, pix2, nc)
     torch.cuda.synchronize()
     if not (bool((s_out[:, :nc] == 0).all())
             and bool((s_out[:, nc] == 1).all())):
@@ -492,8 +509,8 @@ def render_path(dev, check) -> dict:
     def back_to_front(means2d, depth, *args, **kw):
         return sorted_instances(means2d, -depth, *args, **kw)
 
-    with mock.patch.object(rasterizer, "segment_composite",
-                           kcomp.segment_composite_plain):
+    with mock.patch.object(rasterizer, "segment_composite_gather",
+                           kcomp.segment_composite_gather_plain):
         img_p, out_p = av["frame"]()
     with mock.patch.object(rasterizer, "_sorted_instances", back_to_front):
         img_w, out_w = av["frame"]()
@@ -503,8 +520,9 @@ def render_path(dev, check) -> dict:
     height, width = img_p.shape[1:]
     tied = torch.zeros((height + 16, width + 16), dtype=torch.bool,
                        device=dev)
-    for pg, pix in av["calls"]:
-        _, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+    for packed, ids, pix in av["calls"]:
+        _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2),
+                                             pix, nc)
         item, p = ((alpha - kcomp.ALPHA_MIN).abs()
                    < CUTOFF_BAND * kcomp.ALPHA_MIN).any(1).nonzero(
             as_tuple=True)
@@ -645,7 +663,8 @@ def train_path(dev, check, big_call) -> tuple:
               "not measured")
 
     # the device time of the indexing backwards (scatter-adds of the
-    # gathers' gradients), by operator and input shapes
+    # gathers' gradients), by operator and input shapes; index_put_ runs
+    # through _index_put_impl_, which alone is counted
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -656,7 +675,7 @@ def train_path(dev, check, big_call) -> tuple:
         us = getattr(e, "device_time_total", None)
         if us is None:
             us = getattr(e, "cuda_time_total", 0.0)
-        if "index_put" in e.key and us > 0:
+        if "_index_put_impl_" in e.key and us > 0:
             idx_rows.append((float(us), e.key, str(e.input_shapes)[:120],
                              int(e.count)))
     idx_rows.sort(reverse=True)
@@ -676,70 +695,126 @@ def train_path(dev, check, big_call) -> tuple:
     # K7 against its plain version on the step's own worklists
     calls = composite_calls(lambda: loss_and_grads(params, *args))
 
-    def k7_check(label, pg, pix, g):
-        out = kcomp.segment_composite_vjp(pg, pix, g, nc)
-        ref = kcomp.segment_composite_vjp_plain(pg, pix, g, nc)
-        power, alpha = kcomp.segment_power_alpha(pg, pix, nc)
+    # no index backward of the worklists' (W, C) ids is left: it scattered
+    # each slot's (6+nc)-row gradient, (W, C, 6+nc) values, onto the table
+    wl_shapes = [f"[{ids.shape[0]}, {ids.shape[1]}, {6 + nc}]"
+                 for _, ids, _, _ in calls]
+    wl_rows = [r for r in idx_rows if any(w in r[2] for w in wl_shapes)]
+    print(f"  index backward of the worklists' (W, C) ids "
+          f"{[tuple(ids.shape) for _, ids, _, _ in calls]}: "
+          f"{sum(r[0] for r in wl_rows) / 1e3:.4f} ms in {len(wl_rows)} "
+          f"operators (the gather outside the kernels took 29.12 + 40.32 "
+          f"= 69.44 ms on an H100 80GB HBM3 at 700 W); every index "
+          f"backward of the step {sum(r[0] for r in idx_rows) / 1e3:.4f} "
+          f"ms")
+    if wl_rows:
+        raise AssertionError(f"the step still scatters the worklists' "
+                             f"gradients through index_put: {wl_rows}")
+
+    def k7_check(label, packed, ids, pix, g):
+        out = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
+        ref = kcomp.segment_composite_gather_vjp_plain(packed, ids, pix, g,
+                                                       nc)
+        sentinel = len(packed) - 1
+        power, alpha = kcomp.segment_power_alpha(
+            packed[ids].transpose(1, 2), pix, nc)
         near = (alpha - kcomp.ALPHA_MIN).abs() \
             < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
         n_near, tied = int(near.sum()), near.flatten(1).any(1)   # (W,)
         n_pass = int(((power <= 0.0) & (alpha >= kcomp.ALPHA_MIN)).sum())
         del power, alpha, near
-        keep = ~tied
-        diff = (out - ref).abs()[keep]                       # (w, 6+nc, C)
+        # the rows of the gaussians in no tied item (a flip moves every
+        # gradient of its pixel)
+        keep = torch.ones(len(packed), dtype=torch.bool, device=dev)
+        keep[ids[tied]] = False
+        keep[sentinel] = False
+        diff = (out - ref).abs()[keep]                       # (rows, 6+nc)
         rel = [float(diff[:, r].max()) / max(float(ref[:, r].abs().max()),
                                              1e-30)
                for r in range(6 + nc)]
         err_abs = float(diff.max())
-        ok = max(rel) <= K7_REL_TOL
-        W, _, C = pg.shape
-        live_of = pg[:, 5 + nc] > 0                          # (W, C)
+        # the atomics add a row's items in another order on every run
+        again = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
+        rerun = max(float((again - out)[:, r].abs().max())
+                    / max(float(ref[:, r].abs().max()), 1e-30)
+                    for r in range(6 + nc))
+        sentinel_zero = bool((out[sentinel] == 0).all())
+        ok = max(rel) <= K7_REL_TOL and rerun <= K7_REL_TOL and sentinel_zero
+        W, C = ids.shape
+        live_of = live_slots(packed, ids, nc)                # (W, C)
         live = int(live_of.sum())
         live_items = int(live_of.any(1).sum())
+        touched = torch.zeros_like(keep)
+        touched[ids[live_of]] = True
+        held = int((keep & touched).sum())
         verdict = (f"W={W}, C={C}: {n_near} evaluations within "
                    f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
-                   f"items; on the other items max rel err per row "
-                   f"{[f'{r:.2e}' for r in rel]} (tol {K7_REL_TOL:.0e}), "
-                   f"max_abs_err {err_abs:.3e};")
-        # what the function needs from this data.  Bytes: the packed
-        # worklist in and d(worklist) out ((6+nc) C + 2 and (6+nc) C
-        # floats per item); the cotangent ((nc+1) 256 floats) only for the
-        # items that hold a live slot (elsewhere d(worklist) is 0 whatever
-        # g is).  Operations: ~20 FP32 per (live gaussian, pixel) to
-        # evaluate alpha (expf included), and ~50 more per evaluation that
-        # passes both cutoffs (the walk back, the parameter gradients and
-        # their sums over the pixels; a cut alpha leaves S and every
-        # gradient as they are)
+                   f"items; on the rows of the {held} gaussians in none of "
+                   f"those items (of {int(touched.sum())} with a live "
+                   f"slot) max rel err per parameter row "
+                   f"{[f'{r:.2e}' for r in rel]} "
+                   f"(tol {K7_REL_TOL:.0e}), max_abs_err {err_abs:.3e}; a "
+                   f"second run differs by {rerun:.2e} of a row's largest "
+                   f"(the atomics' order); the sentinel row "
+                   f"{'exactly 0' if sentinel_zero else 'NOT 0'};")
+        # what the function needs from this data.  Bytes: the ids (8 C per
+        # item), the rows of the live slots, the tile origins (8 per item),
+        # the cotangent ((nc+1) 256 floats) only for the items that hold a
+        # live slot (elsewhere nothing reaches d packed, whatever g is),
+        # d packed read and written once per live slot and its zero fill.
+        # Operations: ~20 FP32 per live (gaussian, pixel) to evaluate
+        # alpha (expf included), and ~50 more per evaluation that passes
+        # both cutoffs (the walk back, the parameter gradients and their
+        # sums over the pixels; a cut alpha leaves S and every gradient as
+        # they are)
         check("composite_bwd", [out], [ref], "composite_bwd.cu",
               "mpmavatar_tpu/render/pallas_composite.py:125",
-              lambda: kcomp.segment_composite_vjp(pg, pix, g, nc),
-              lambda: kcomp.segment_composite_vjp_plain(pg, pix, g, nc),
-              4.0 * (W * (2 * (6 + nc) * C + 2)
-                     + live_items * (nc + 1) * 256),
+              lambda: kcomp.segment_composite_gather_vjp(packed, ids, pix, g,
+                                                         nc),
+              lambda: kcomp.segment_composite_gather_vjp_plain(
+                  packed, ids, pix, g, nc),
+              8.0 * W * C + 4.0 * (3 * live * (6 + nc) + 2 * W
+                                   + live_items * (nc + 1) * 256
+                                   + len(packed) * (6 + nc)),
               20.0 * live * 256 + 50.0 * n_pass, launches, label=label,
               err=(err_abs, ok, verdict),
               extra={"items": W, "chunk": C, "live_slots": live,
                      "live_items": live_items, "passing_evaluations": n_pass,
                      "near_cutoff_evaluations": n_near,
-                     "tied_items": int(tied.sum())})
+                     "tied_items": int(tied.sum()),
+                     "rows_held": held, "rerun_rel": rerun,
+                     **kcomp.kernel_info(C, nc)[kcomp.KERNEL_BWD]})
 
-    (pg1, pix1, g1), (pg2, pix2, g2) = calls
-    k7_check("composite_bwd (train step phase 1, every tile)", pg1, pix1, g1)
-    k7_check("composite_bwd (train step phase 2, the worklist)", pg2, pix2,
-             g2)
-    pg_b, pix_b = big_call
-    g_b = torch.randn((pg_b.shape[0], nc + 1, 256), device=dev,
+    (pk1, ids1, pix1, g1), (pk2, ids2, pix2, g2) = calls
+    k7_check("composite_bwd (train step phase 1, every tile)", pk1, ids1,
+             pix1, g1)
+    k7_check("composite_bwd (train step phase 2, the worklist)", pk2, ids2,
+             pix2, g2)
+    pk_b, ids_b, pix_b = big_call
+    g_b = torch.randn((ids_b.shape[0], nc + 1, 256), device=dev,
                       generator=torch.Generator(device=dev).manual_seed(3))
     k7_check("composite_bwd (big_splats phase 2, C = 128, seeded "
-             "cotangent)", pg_b, pix_b, g_b)
-    sent = torch.zeros_like(pg2)
-    sent[:, 0:2] = -1e6
-    s_out = kcomp.segment_composite_vjp(sent, pix2, g2, nc)
+             "cotangent)", pk_b, ids_b, pix_b, g_b)
+    # at C = 128 most gaussians share an item with a near-cutoff alpha, so
+    # the same worklist again with those gaussians silenced (opacity 0:
+    # alpha 0 at every pixel, far from the cutoff), every row held
+    _, alpha = kcomp.segment_power_alpha(pk_b[ids_b].transpose(1, 2), pix_b,
+                                         nc)
+    near = ((alpha - kcomp.ALPHA_MIN).abs()
+            < CUTOFF_BAND * kcomp.ALPHA_MIN).any(-1)          # (W, C)
+    del alpha
+    pk_s = pk_b.clone()
+    pk_s[ids_b[near], 5 + nc] = 0.0
+    k7_check(f"composite_bwd (big_splats phase 2, C = 128, seeded "
+             f"cotangent, its {int(ids_b[near].unique().numel())} "
+             f"near-cutoff gaussians silenced)", pk_s, ids_b, pix_b, g_b)
+    sent =torch.full_like(ids2, len(pk2) - 1)
+    s_out = kcomp.segment_composite_gather_vjp(pk2, sent, pix2, g2, nc)
     torch.cuda.synchronize()
     if not bool((s_out == 0).all()):
         raise AssertionError("K7 on sentinel-only items is not zero")
     print(f"composite_bwd on {sent.shape[0]} sentinel-only items with the "
-          f"step's cotangent: exactly zero")
+          f"step's cotangent: d packed exactly zero")
 
     # the step's gradients through K7 against the plain compositor's, and
     # a wrong path: K7 with the transmittance cotangent dropped
@@ -747,12 +822,13 @@ def train_path(dev, check, big_call) -> tuple:
         if patch is None:
             loss, aux, grads = loss_and_grads(params, *args)
         else:
-            with mock.patch.object(rasterizer, "segment_composite", patch):
+            with mock.patch.object(rasterizer, "segment_composite_gather",
+                                   patch):
                 loss, aux, grads = loss_and_grads(params, *args)
         return loss, dict(grads, vgrad=aux["vgrad"])
 
     loss_k, g_k = step_grads()
-    loss_p, g_p = step_grads(kcomp.segment_composite_plain)
+    loss_p, g_p = step_grads(kcomp.segment_composite_gather_plain)
     loss_w, g_w = step_grads(wrong_k7("no_transmittance"))
     torch.cuda.synchronize()
 
@@ -806,7 +882,7 @@ def train_path(dev, check, big_call) -> tuple:
 
 
 def wrong_k7(mode: str):
-    """A segment_composite whose backward is K7 made wrong: the
+    """A segment_composite_gather whose backward is K7 made wrong: the
     transmittance cotangent dropped (``no_transmittance``) or the colour
     rows of its result zeroed (``no_colour``)."""
     import torch
@@ -814,22 +890,22 @@ def wrong_k7(mode: str):
 
     class Wrong(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, pgT, pix0, n):
-            ctx.save_for_backward(pgT, pix0)
+        def forward(ctx, packed, ids, pix0, n):
+            ctx.save_for_backward(packed, ids, pix0)
             ctx.n = n
-            return kcomp.segment_composite(pgT, pix0, n)
+            return kcomp.segment_composite_gather(packed, ids, pix0, n)
 
         @staticmethod
         def backward(ctx, g):
-            pgT, pix0 = ctx.saved_tensors
+            packed, ids, pix0 = ctx.saved_tensors
             n = ctx.n
             if mode == "no_transmittance":
                 g = g.clone()
                 g[:, n] = 0.0
-            d = kcomp.segment_composite_vjp(pgT, pix0, g, n)
+            d = kcomp.segment_composite_gather_vjp(packed, ids, pix0, g, n)
             if mode == "no_colour":
                 d[:, 5:5 + n] = 0.0
-            return d, None, None
+            return d, None, None, None
 
     return Wrong.apply
 
@@ -839,7 +915,8 @@ def descent(dev, raster, patch=None) -> list:
     avatar rendered with a second seed's colours at the start's opacity,
     with the opacity group frozen (its regularizer's Adam sign steps move
     every opacity by 0.05 in logit per step, with no image gradient at
-    all), through ``patch`` in place of segment_composite if given."""
+    all), through ``patch`` in place of segment_composite_gather if
+    given."""
     import contextlib
     from unittest import mock
     import numpy as np
@@ -869,7 +946,7 @@ def descent(dev, raster, patch=None) -> list:
     step = tapp.make_train_step(avatar, opt, optimizer, bapp.ACTIVE_SH,
                                 False, **raster)
     l1 = []
-    with (mock.patch.object(rasterizer, "segment_composite", patch)
+    with (mock.patch.object(rasterizer, "segment_composite_gather", patch)
           if patch else contextlib.nullcontext()):
         for _ in range(LOSS_STEPS):
             _, aux = step(params, 0, 0, cam[0], gt, gt_msk, ao, cam[1],
@@ -918,6 +995,13 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print("  ptxas:", line.strip())
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    for chunk, n_c in ((32, 3), (128, 3), (512, 8)):
+        print(f"  as built, at C = {chunk}, nc = {n_c}: " + "; ".join(
+            f"{k} {v['registers']} registers/thread, {v['spill_bytes']} "
+            f"spilled bytes/thread, {v['blocks_per_sm']} blocks (of 256 "
+            f"threads) per SM" for k, v in kcomp.kernel_info(chunk,
+                                                            n_c).items()))
 
     # ---- 2. the paths -------------------------------------------------
     per_sub = {"cloth_stress": 1, "p2g": 1, "grid_pipeline": 1, "g2p": 1}

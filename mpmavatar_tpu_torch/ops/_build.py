@@ -118,7 +118,10 @@ def build_info() -> dict:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points: each returns cudaGetLastError() after its launch
+_L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+# C entry points: each returns cudaGetLastError() after its launch (the
+# *_info queries: after reading the kernel's attributes)
 _SIGNATURES = {
     "launch_cloth_stress": [_P] * 12 + [_I, _P],
     "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P],
@@ -127,8 +130,10 @@ _SIGNATURES = {
                                          _I, _I, _I, _P, _P],
     "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
-    "launch_composite": [_P, _P, _I, _I, _I, _P, _P],
-    "launch_composite_bwd": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "composite_info": [_I, _I, _IP],
+    "composite_bwd_info": [_I, _I, _IP],
 }
 
 

@@ -1,6 +1,7 @@
-// K7: the VJP of K6 (segment compositing).  Per work item (C depth-ordered
-// gaussians against the 256 pixels of a 16x16 tile) and pixel, with the
-// forward of composite.cu
+// K7: the VJP of K6 (segment compositing) with respect to the packed
+// parameter table.  Per work item (C depth-ordered instances of the table
+// against the 256 pixels of a 16x16 tile) and pixel, with the forward of
+// composite.cu
 //
 //   alpha_c = min(0.99, o exp(min(power, 0))), 0 where power > 0 or
 //             alpha < 1/255
@@ -16,90 +17,107 @@
 // then, where alpha is not cut and o e <= 0.99 (e = exp(min(power, 0))):
 // d o = d alpha e, dpow = d alpha o e, d mean_x = dpow (a dx + b dy),
 // d mean_y = dpow (c dy + b dx), d a = -dpow dx^2 / 2, d c = -dpow dy^2 / 2,
-// d b = -dpow dx dy; each (row, gaussian) summed over the item's pixels.
-// The recurrence needs no division: T_c is recomputed front to back, never
-// recovered as T_{c+1} / (1 - alpha_c) (T underflows after a few dozen
-// alphas near 0.99).
+// d b = -dpow dx dy; each (row, gaussian) summed over the item's pixels
+// and added into the gaussian's row of d packed.  The recurrence needs no
+// division: T_c is recomputed front to back, never recovered as
+// T_{c+1} / (1 - alpha_c) (T underflows after a few dozen alphas near
+// 0.99).
 //
 // Replaces: mpmavatar_tpu/render/pallas_composite.py::_seg_bwd_pallas (the
 // custom-VJP backward of segment_composite, jax.vjp over _seg_math inside
-// the kernel).  Plain PyTorch twin: ops/composite.py::
-// segment_composite_vjp_plain (autograd over segment_composite_plain).
+// the kernel), together with the backward of the XLA gather packed[ids]
+// in front of it (a scatter-add onto the table's rows).  Plain PyTorch
+// twin: ops/composite.py::segment_composite_gather_vjp_plain (autograd
+// over segment_composite_gather_plain).
 //
-// Layout: pg (W, 6 + nc, C) rows [mean_x, mean_y, conic_a, conic_b,
-// conic_c, colour_0..nc-1, opacity]; pix0 (W, 2); g (W, nc + 1, 256);
-// dpg (W, 6 + nc, C), the layout of pg.
+// Layout: packed (rows, 6 + nc) row-major; ids (W, C) int64, `sentinel`
+// marking an empty slot; pix0 (W, 2); g (W, nc + 1, 256); dpacked, the
+// layout of packed, zero-filled by the wrapper.  The sentinel's row is
+// never written, so its gradient is exactly 0.
 //
-// Bound on an H100, counted on what the data needs: FP32 operations, ~20
-// per (item, live gaussian, pixel) to evaluate alpha and ~50 more where
-// alpha passes both cutoffs (the walk back, the parameter gradients and
-// their sums), against (6 + nc) C + 2 floats in and (6 + nc) C floats out
-// per item, and the (nc + 1) 256-float cotangent in per item that holds a
-// live gaussian (elsewhere the result is 0 whatever g is).
-// Design: one block per
-// item and one thread per pixel, as K6.  The item's parameters go to
-// shared memory once.  The gaussians are taken in segments of kSeg = 32:
-// a first front-to-back pass keeps each pixel's transmittance at every
-// segment start (shared memory, skipped when C <= 32); then, segment by
-// segment from the back, a thread recomputes its 32 transmittances into
-// registers and walks the segment back to front with S in a register.
-// Each per-gaussian gradient is summed over the warp's 32 pixels with
-// shuffles (skipped when no pixel of the warp sees the gaussian, the
-// common case) into per-warp partials in shared memory, then over the 8
-// warps in a fixed order: no atomics, the result is deterministic.
+// Bound on an H100, recounted on what the data needs: bytes -- the ids (8
+// C per item), the live rows gathered (4 (6 + nc) per live slot), the tile
+// origins (8 per item), the cotangent (4 (nc + 1) 256) only for the items
+// that hold a live slot (elsewhere nothing reaches d packed, whatever g
+// is), d packed read and written once per live slot (8 (6 + nc)) and its
+// zero fill (4 (6 + nc) per row); FP32 operations -- ~20 per (live
+// gaussian, pixel) to evaluate alpha (expf included) and ~50 more per
+// evaluation that passes both cutoffs (the walk back, the parameter
+// gradients and their sums).
+//
+// Design: one block per item and one thread per pixel, as K6, with K6's
+// gather (composite_common.cuh): only the live slots are walked, and an
+// item with none returns before it reads g.  The n_live gaussians are
+// taken in segments of kSeg = 8: a first front-to-back pass keeps each
+// pixel's transmittance at every segment start after the first in shared
+// memory; then, segment by segment from the back, a thread recomputes its
+// 8 transmittances and alphas into registers and walks the segment back
+// to front with S in a register.  A warp none of whose pixels the
+// gaussian reaches (alpha 0 leaves S as it is) skips the step; the others
+// sum the 6 + nc gradients over their 32 pixels together, in 16 shuffles
+// by a transposing butterfly (not 5 per gradient), into per-warp partials
+// in shared memory, then over the 8 warps in a fixed order: the block's
+// sums are deterministic.  __launch_bounds__(256, 4) holds the kernel to
+// 64 registers (60 as built, no spills): four blocks per SM at C = 32;
+// deeper register segments or per-gradient sums need more registers and
+// fit fewer blocks.  Each nonzero (live slot, row) sum is then
+// added into d packed[id] with one atomicAdd.  A gaussian reaches at most
+// max_tiles_per_gauss (36) tiles, so contention is low; the order of
+// those adds, and so the rounding of a row summed over several items,
+// changes from run to run.  Under the per-slot contract (ids = arange,
+// every slot its own row) each entry gets at most one add onto zero and
+// the result is deterministic.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
+using namespace composite;
+
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPix = kTile * kTile;
-constexpr int kWarps = kPix / 32;
-constexpr int kMaxNc = 8;
-constexpr int kSeg = 32;
-constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr int kSeg = 8;
+constexpr int kMinBlocks = 4;
 
-struct Eval {
-  float dx, dy, e, raw, alpha;
-};
+constexpr int kSums = 16;    // the 6 + kMaxNc = 14 gradients, padded
 
-// one (gaussian, pixel) evaluation, as composite.cu computes it
-__device__ __forceinline__ Eval evaluate(float px, float py, float mx,
-                                         float my, float a, float b,
-                                         float c, float o) {
-  Eval v;
-  v.dx = px - mx;
-  v.dy = py - my;
-  const float power = -0.5f * (a * v.dx * v.dx + c * v.dy * v.dy)
-                      - b * v.dx * v.dy;
-  v.e = expf(fminf(power, 0.0f));
-  v.raw = o * v.e;
-  v.alpha = fminf(0.99f, v.raw);
-  if (power > 0.0f || v.alpha < kAlphaMin) v.alpha = 0.0f;
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Sums each of v's 16 values over the warp's 32 lanes in 16 shuffles (not
+// 16 x 5): a butterfly that transposes as it adds.  At each of the first
+// four steps a lane keeps half of its values and adds its partner's
+// partial sums of that half, so that after them lane l carries a partial
+// sum of value l >> 1; the last step adds the two lanes that share it.
+// Returns the sum of value lane >> 1, added in the same order in every
+// warp.
+__device__ __forceinline__ float warp_sums(float (&v)[kSums], int lane) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int half = kSums / 2; half >= 1; half >>= 1) {
+    const bool upper = lane & (2 * half);
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * half);
+    }
+  }
+  return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
-__global__ void __launch_bounds__(kPix)
-composite_bwd_kernel(const float* __restrict__ pg,
+__global__ void __launch_bounds__(kPix, kMinBlocks)
+composite_bwd_kernel(const float* __restrict__ packed,
+                     const long long* __restrict__ ids,
                      const float* __restrict__ pix0,
                      const float* __restrict__ g, int C, int nc,
-                     float* __restrict__ dpg) {
-  extern __shared__ float s[];
+                     long long sentinel, float* __restrict__ dpacked) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int rows = 6 + nc;
-  const int n_seg = (C + kSeg - 1) / kSeg;
-  float* par = s;                          // rows x C parameters
-  float* t_start = par + rows * C;         // n_seg x 256 segment-start T
-  float* part = t_start + n_seg * kPix;    // kWarps x rows x kSeg partials
+  long long* s_id = reinterpret_cast<long long*>(smem);
+  float* par = reinterpret_cast<float*>(s_id + C);      // rows x C
+  float* t_start = par + rows * C;      // (segments - 1) x 256: T at starts
+  float* part = t_start + ((C + kSeg - 1) / kSeg - 1) * kPix;
   const long long item = blockIdx.x;
-  const float* src = pg + item * rows * C;
-  for (int i = threadIdx.x; i < rows * C; i += kPix) par[i] = src[i];
-  __syncthreads();
+  const int n = gather_live(ids + item * C, C, sentinel, packed, rows, s_id,
+                            par);
+  if (n == 0) return;                   // nothing reaches d packed
 
   const float* mx = par;
   const float* my = par + C;
@@ -118,110 +136,135 @@ composite_bwd_kernel(const float* __restrict__ pg,
   float gk[kMaxNc];
 #pragma unroll
   for (int k = 0; k < kMaxNc; ++k) gk[k] = k < nc ? gi[k * kPix + p] : 0.0f;
-  float S = gi[nc * kPix + p];             // S_C = g_T
+  float S = gi[nc * kPix + p];             // S_n = g_T
 
-  // pass 1: this pixel's transmittance at every segment start
+  // pass 1: this pixel's transmittance at the start of segments 1, 2, ...
+  const int n_seg = (n + kSeg - 1) / kSeg;
   float T = 1.0f;
-  for (int si = 0; si < n_seg; ++si) {
-    t_start[si * kPix + p] = T;
-    if (si == n_seg - 1) break;
-    for (int c = si * kSeg; c < (si + 1) * kSeg; ++c)
-      T *= 1.0f - evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
-                           op[c]).alpha;
+  for (int c = 0; c < (n_seg - 1) * kSeg; ++c) {
+    T *= 1.0f - evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
+                         op[c]).alpha;
+    if ((c + 1) % kSeg == 0) t_start[((c + 1) / kSeg - 1) * kPix + p] = T;
   }
 
   // pass 2: segments from the back, each walked back to front
-  float* dst_item = dpg + item * rows * C;
   for (int si = n_seg - 1; si >= 0; --si) {
     const int c0 = si * kSeg;
-    float tj[kSeg];
-    T = t_start[si * kPix + p];
+    float tj[kSeg], aj[kSeg];               // T_c and alpha_c
+    T = si > 0 ? t_start[(si - 1) * kPix + p] : 1.0f;
 #pragma unroll
     for (int j = 0; j < kSeg; ++j) {
       tj[j] = T;
       const int c = c0 + j;
-      if (c < C)
-        T *= 1.0f - evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
-                             op[c]).alpha;
+      aj[j] = c < n ? evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
+                               op[c]).alpha
+                    : 0.0f;
+      T *= 1.0f - aj[j];
     }
 #pragma unroll
     for (int j = kSeg - 1; j >= 0; --j) {
       const int c = c0 + j;
-      if (c >= C) continue;                // the same for the whole block
-      const Eval v = evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
-                              op[c]);
-      float G = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kMaxNc; ++k)
-        if (k < nc) G += gk[k] * col[k * C + c];
-      const float dalpha = tj[j] * (G - S);
-      S = G * v.alpha + (1.0f - v.alpha) * S;
-      const bool live = v.alpha > 0.0f;
-      float* dst = part + warp * rows * kSeg + j;     // part[warp][r][j]
+      if (c >= n) continue;                // the same for the whole block
+      // a pixel with alpha 0 leaves S as it is and gets no gradient: a
+      // warp of such pixels skips the gaussian
+      const float alpha = aj[j];
+      const bool live = alpha > 0.0f;
+      float sum = 0.0f;
       if (__any_sync(0xffffffffu, live)) {
-        const float w = live ? v.alpha * tj[j] : 0.0f;
+        const Eval ev = evaluate(px, py, mx[c], my[c], ca[c], cb[c], cc[c],
+                                 op[c]);
+        float G = 0.0f;
+#pragma unroll
+        for (int k = 0; k < kMaxNc; ++k)
+          if (k < nc) G += gk[k] * col[k * C + c];
+        const float dalpha = tj[j] * (G - S);
+        S = G * alpha + (1.0f - alpha) * S;
+        const float w = alpha * tj[j];
         // d alpha passes the 0.99 clamp only below it (at the tie too, as
         // torch.clamp_max's gradient does)
-        const float da = (live && v.raw <= 0.99f) ? dalpha : 0.0f;
-        const float dx = live ? v.dx : 0.0f;
-        const float dy = live ? v.dy : 0.0f;
-        const float dpow = da * v.raw;
-        const float r0 = warp_sum(dpow * (ca[c] * dx + cb[c] * dy));
-        const float r1 = warp_sum(dpow * (cc[c] * dy + cb[c] * dx));
-        const float r2 = warp_sum(-0.5f * dpow * dx * dx);
-        const float r3 = warp_sum(-dpow * dx * dy);
-        const float r4 = warp_sum(-0.5f * dpow * dy * dy);
-        const float ro = warp_sum(da * v.e);
-        if (lane == 0) {
-          dst[0] = r0;
-          dst[kSeg] = r1;
-          dst[2 * kSeg] = r2;
-          dst[3 * kSeg] = r3;
-          dst[4 * kSeg] = r4;
-          dst[(5 + nc) * kSeg] = ro;
-        }
+        const float da = (live && ev.raw <= 0.99f) ? dalpha : 0.0f;
+        const float dx = live ? ev.dx : 0.0f;
+        const float dy = live ? ev.dy : 0.0f;
+        const float dpow = da * ev.raw;
+        // value i of row i (means, conic), 5 + nc (opacity) at i = 5,
+        // i - 1 (colours) from i = 6
+        float v[kSums];
+        v[0] = dpow * (ca[c] * dx + cb[c] * dy);
+        v[1] = dpow * (cc[c] * dy + cb[c] * dx);
+        v[2] = -0.5f * dpow * dx * dx;
+        v[3] = -dpow * dx * dy;
+        v[4] = -0.5f * dpow * dy * dy;
+        v[5] = da * ev.e;
 #pragma unroll
-        for (int k = 0; k < kMaxNc; ++k) {
-          if (k < nc) {
-            const float rk = warp_sum(gk[k] * w);
-            if (lane == 0) dst[(5 + k) * kSeg] = rk;
-          }
-        }
-      } else if (lane == 0) {
-        for (int r = 0; r < rows; ++r) dst[r * kSeg] = 0.0f;
+        for (int k = 0; k < kMaxNc; ++k) v[6 + k] = gk[k] * w;
+        v[14] = v[15] = 0.0f;
+        sum = warp_sums(v, lane);
       }
+      const int i = lane >> 1;              // part[warp][row of i][j]
+      if (!(lane & 1) && i < rows)
+        part[(warp * rows + (i < 5 ? i : i == 5 ? 5 + nc : i - 1)) * kSeg
+             + j] = sum;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < rows * kSeg; i += kPix) {
-      const int r = i / kSeg;
-      const int j = i % kSeg;
-      if (c0 + j < C) {
+    // the 8 warps' partials in a fixed order, then one add per nonzero
+    // (live slot, row) into d packed; neighbouring threads take
+    // neighbouring rows of one gaussian
+    for (int i = threadIdx.x; i < kSeg * rows; i += kPix) {
+      const int j = i / rows;
+      const int r = i - j * rows;
+      if (c0 + j < n) {
         float sum = 0.0f;
         for (int w = 0; w < kWarps; ++w) sum += part[(w * rows + r) * kSeg + j];
-        dst_item[r * C + c0 + j] = sum;
+        if (sum != 0.0f) atomicAdd(dpacked + s_id[c0 + j] * rows + r, sum);
       }
     }
     __syncthreads();                       // the partials are reused
   }
 }
 
-}  // namespace
-
-extern "C" int launch_composite_bwd(const float* pg, const float* pix0,
-                                    const float* g, int W, int C, int nc,
-                                    float* dpg, void* stream) {
+size_t bwd_smem(int C, int nc) {
   const int rows = 6 + nc;
   const int n_seg = (C + kSeg - 1) / kSeg;
-  const size_t smem = sizeof(float)
-      * (static_cast<size_t>(rows) * C + static_cast<size_t>(n_seg) * kPix
-         + static_cast<size_t>(kWarps) * rows * kSeg);
-  if (smem > 48 * 1024) {          // above 48 KB only after opting in
-    const cudaError_t err = cudaFuncSetAttribute(
-        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  return gather_bytes(C, rows)
+         + sizeof(float) * (static_cast<size_t>(n_seg - 1) * kPix
+                            + static_cast<size_t>(kWarps) * rows * kSeg);
+}
+
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;   // above only after opting in
+  return cudaFuncSetAttribute(composite_bwd_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace
+
+extern "C" int launch_composite_bwd(const float* packed, const long long* ids,
+                                    const float* pix0, const float* g, int W,
+                                    int C, int nc, long long sentinel,
+                                    float* dpacked, void* stream) {
+  const size_t smem = bwd_smem(C, nc);
+  const cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   composite_bwd_kernel<<<W, kPix, smem, static_cast<cudaStream_t>(stream)>>>(
-      pg, pix0, g, C, nc, dpg);
+      packed, ids, pix0, g, C, nc, sentinel, dpacked);
   return static_cast<int>(cudaGetLastError());
+}
+
+// registers per thread, local (spilled) bytes per thread and resident
+// blocks per SM at this C and nc, as built
+extern "C" int composite_bwd_info(int C, int nc, int* info) {
+  const size_t smem = bwd_smem(C, nc);
+  cudaError_t err = allow_smem(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, composite_bwd_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, composite_bwd_kernel, kPix, smem);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = blocks;
+  return static_cast<int>(err);
 }

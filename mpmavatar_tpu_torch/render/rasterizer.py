@@ -7,12 +7,15 @@ tiers, and front-to-back alpha compositing.  Two compositors, chosen by
 ``work_cap`` as in the JAX package: ``_composite`` (a dense (tile,
 capacity) table, plain tensor code, ``work_cap=0``) and
 ``_composite_worklist`` (``work_cap > 0``), whose per-item work is K6
-(``ops/composite.py``), launched twice per frame.
+(``ops/composite.py::segment_composite_gather``), launched twice per
+frame on the parameter table and each item's instance ids.
 
 Port of the contract, not the TPU layout: the lane-rotated chunk windows
-of the JAX package become a clipped gather of ``start + arange(chunk)``,
-and its kernel block padding (phase 1 padded to a multiple of 8,
-``pick_block``) is gone; the outputs are the same.
+of the JAX package become a clipped gather of ``start + arange(chunk)``
+ids, the (W, 6+nc, C) gather of the items' parameters happens inside K6
+(and its scatter-add backward inside K7), and the kernel block padding
+(phase 1 padded to a multiple of 8, ``pick_block``) is gone; the outputs
+are the same.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..core.types import _Tensors
-from ..ops.composite import segment_composite
+from ..ops.composite import segment_composite_gather
 
 TILE = 16
 ALPHA_MIN = 1.0 / 255.0
@@ -393,8 +396,7 @@ def _composite_worklist(gauss_sorted, edges, means2d, conic, colors,
 
     # ---- phase 1: first chunk of every tile ----------------------------
     ids1 = window(starts, lane[None, :] < counts[:, None])
-    seg1 = segment_composite(packed[ids1].transpose(1, 2).contiguous(),
-                             pix0_all, nc)
+    seg1 = segment_composite_gather(packed, ids1, pix0_all, nc)
     c1 = seg1[:, :nc]                                      # (T, nc, P)
     t1 = seg1[:, nc]                                       # (T, P)
 
@@ -417,8 +419,7 @@ def _composite_worklist(gauss_sorted, edges, means2d, conic, colors,
     pos = ordinal[:, None] * chunk + lane[None, :]
     in_tile = valid_item[:, None] & (pos < counts[item_tile][:, None])
     ids = window(starts[item_tile] + ordinal * chunk, in_tile)
-    seg = segment_composite(packed[ids].transpose(1, 2).contiguous(),
-                            pix0_all[item_tile], nc)
+    seg = segment_composite_gather(packed, ids, pix0_all[item_tile], nc)
     seg_c = seg[:, :nc]                                    # (W, nc, P)
     seg_t = seg[:, nc]                                     # (W, P)
 

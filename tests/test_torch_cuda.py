@@ -364,6 +364,136 @@ def test_composite_backward_kernel_sentinel_items_give_zero(dev):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+def _composite_table(dev, w, c, nc=3, seed=0):
+    """(packed (N+1, 6+nc), ids (W, C) int64, pix0 (W, 2)) with N = W C / 6
+    gaussians over a 64 x 64 pixel patch and the sentinel row N: per item
+    a tile origin and C distinct ids, ~40% of the slots sentinels (inside
+    the item and at its tail), the last four items all sentinels; a
+    gaussian sits in ~3.6 items."""
+    gen = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(s, generator=gen)
+    n = w * c // 6
+    packed = torch.zeros((n + 1, 6 + nc))
+    packed[:n, 0:2] = u(-4, 68, n, 2)
+    sx, sy, rho = u(1, 6, n), u(1, 6, n), u(-0.6, 0.6, n)
+    det = 1.0 - rho ** 2
+    packed[:n, 2], packed[:n, 3], packed[:n, 4] = (
+        1 / (sx ** 2 * det), -rho / (sx * sy * det), 1 / (sy ** 2 * det))
+    packed[:n, 5:5 + nc] = u(0, 1, n, nc)
+    packed[:n, 5 + nc] = u(0.05, 1, n)
+    packed[n, 0:2] = -1e6
+    ids = torch.stack([torch.randperm(n, generator=gen)[:c]
+                       for _ in range(w)])
+    ids[torch.rand((w, c), generator=gen) > 0.6] = n
+    ids[-4:] = n
+    pix0 = 16.0 * torch.randint(0, 4, (w, 2), generator=gen).float()
+    return packed.to(dev), ids.to(dev), pix0.to(dev)
+
+
+def _tied_items(packed, ids, pix0, nc):
+    """(W,) bool: items with an alpha within 1e-4 of the 1/255 cutoff."""
+    _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2), pix0,
+                                         nc)
+    return ((alpha - kcomp.ALPHA_MIN).abs()
+            < 1e-4 * kcomp.ALPHA_MIN).flatten(1).any(1)
+
+
+def _check_gather_kernels(packed, ids, pix0, nc, seed):
+    """K6 and K7 through segment_composite_gather against their plain
+    versions: K6 to 1e-5 off the tied pixels, K7 per parameter column
+    relative to its largest on the rows of gaussians in no tied item (the
+    atomics add a row's items in any order), the sentinel row exactly 0,
+    sentinel-only items (0, 1); the autograd backward launches K7."""
+    w = ids.shape[0]
+    n = len(packed) - 1
+    g = torch.randn((w, nc + 1, 256), generator=torch.Generator(
+        device=packed.device).manual_seed(seed), device=packed.device)
+    before = _build.launch_counts()
+    x = packed.clone().requires_grad_(True)
+    out = kcomp.segment_composite_gather(x, ids, pix0, nc)
+    (auto,) = torch.autograd.grad(out, x, g)
+    d = kcomp.segment_composite_gather_vjp(packed, ids, pix0, g, nc)
+    after = _build.launch_counts()
+    assert after.get(kcomp.KERNEL, 0) == before.get(kcomp.KERNEL, 0) + 1
+    assert after[kcomp.KERNEL_BWD] == before.get(kcomp.KERNEL_BWD, 0) + 2
+    ref = kcomp.segment_composite_gather_plain(packed, ids, pix0, nc)
+    err, tied_px = _composite_err(out.detach(), ref,
+                                  packed[ids].transpose(1, 2), pix0, nc)
+    assert err < 1e-5 and tied_px < w * 256 // 100
+    sent = (ids == n).all(1)
+    assert int(sent.sum()) >= 4
+    assert torch.equal(out[sent, :nc], torch.zeros_like(out[sent, :nc]))
+    assert torch.equal(out[sent, nc], torch.ones_like(out[sent, nc]))
+    d_ref = kcomp.segment_composite_gather_vjp_plain(packed, ids, pix0, g,
+                                                     nc)
+    keep = torch.ones(n + 1, dtype=torch.bool, device=packed.device)
+    keep[ids[_tied_items(packed, ids, pix0, nc)]] = False
+    keep[n] = False
+    assert int(keep.sum()) > n // 2
+    # rows summed over two or more items
+    assert int((torch.bincount(ids[ids < n], minlength=n) >= 2).sum()) \
+        > n // 4
+    scale = d_ref[keep].abs().amax(0)
+    for dk in (d, auto):
+        assert torch.equal(dk[n], torch.zeros_like(dk[n]))
+        assert float(((dk - d_ref)[keep].abs().amax(0) / scale).max()) < 1e-4
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_composite_gather_kernels_match_plain(dev, chunk):
+    _check_gather_kernels(*_composite_table(dev, 300, chunk, seed=chunk), 3,
+                          seed=chunk + 1)
+
+
+def test_composite_gather_kernels_at_the_largest_shape(dev):
+    """nc = 8 and C = 512: K7's shared memory needs the opt-in above 48
+    KB.  At C = 512 nearly every item has an alpha near the cutoff, so the
+    gaussians with one get opacity 0 (alpha 0, far from it) and every row
+    is held."""
+    packed, ids, pix0 = _composite_table(dev, 40, 512, nc=8, seed=6)
+    _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2), pix0,
+                                         8)
+    tied = ((alpha - kcomp.ALPHA_MIN).abs()
+            < 1e-4 * kcomp.ALPHA_MIN).any(-1)                 # (W, C)
+    assert int(tied.sum()) < 40 * 512 // 20
+    packed[ids[tied], 13] = 0.0
+    packed[-1, 13] = 0.0
+    _check_gather_kernels(packed, ids, pix0, 8, seed=7)
+
+
+def test_per_slot_wrappers_are_the_gathered_kernels_on_arange_ids(dev):
+    """segment_composite / segment_composite_vjp launch the same K6 and K7
+    as the gathered entry on the slots as a table (a sentinel row
+    appended) and ids = arange: bit-equal results, since each entry of
+    d(table) gets at most one atomic add onto zero."""
+    pg, pix0 = _composite_items(dev, 200, 32, seed=8)
+    w, rows, c = pg.shape
+    table = torch.cat([pg.transpose(1, 2).reshape(w * c, rows),
+                       torch.zeros((1, rows), device=dev)])
+    table[-1, 0:2] = -1e6
+    ids = torch.arange(w * c, device=dev).view(w, c)
+    g = torch.randn((w, 4, 256), generator=torch.Generator(
+        device=dev).manual_seed(9), device=dev)
+    assert torch.equal(kcomp.segment_composite(pg, pix0, 3),
+                       kcomp.segment_composite_gather(table, ids, pix0, 3))
+    d = kcomp.segment_composite_gather_vjp(table, ids, pix0, g, 3)
+    assert torch.equal(d[-1], torch.zeros_like(d[-1]))
+    assert torch.equal(kcomp.segment_composite_vjp(pg, pix0, g, 3),
+                       d[:-1].view(w, c, rows).transpose(1, 2))
+
+
+def test_composite_kernel_info(dev):
+    """The built K6 and K7 report their registers and occupancy: K7 within
+    its launch bounds (at most 64 registers, four blocks per SM at the
+    main path's C = 32), neither spilling."""
+    info = kcomp.kernel_info(32, 3)
+    for kernel in (kcomp.KERNEL, kcomp.KERNEL_BWD):
+        assert info[kernel]["spill_bytes"] == 0, info
+    assert info[kcomp.KERNEL_BWD]["registers"] <= 64
+    assert info[kcomp.KERNEL_BWD]["blocks_per_sm"] >= 4
+    assert kcomp.kernel_info(512, 8)[kcomp.KERNEL_BWD]["blocks_per_sm"] >= 1
+
+
 def test_avatar_render_launches_k6_twice_and_matches_the_cpu(dev):
     """The render benchmark's avatar at a cut size: two K6 launches per
     frame and no other kernel; the frame against the plain path on the
@@ -403,12 +533,36 @@ def _perturbed(params, device):
             rotation=rnd(*s.rotation.shape)))
 
 
-def test_train_step_launches_k6_and_k7_twice_and_matches_the_cpu(dev):
+def _index_gathers(monkeypatch):
+    """Index shapes of every IndexBackward node in the graphs that
+    torch.autograd.grad is handed from here on."""
+    shapes, grad = [], torch.autograd.grad
+
+    def spy(outputs, *args, **kw):
+        nodes, stack = set(), [outputs.grad_fn]
+        while stack:
+            node = stack.pop()
+            if node is not None and node not in nodes:
+                nodes.add(node)
+                stack += [f for f, _ in node.next_functions]
+        shapes.extend(tuple(i.shape) for node in nodes
+                      if node.name().startswith("IndexBackward")
+                      for i in node._saved_indices if i is not None)
+        return grad(outputs, *args, **kw)
+
+    monkeypatch.setattr(torch.autograd, "grad", spy)
+    return shapes
+
+
+def test_train_step_launches_k6_and_k7_twice_and_matches_the_cpu(
+        dev, monkeypatch):
     """The train benchmark's scene at a cut size, moved off its ties: one
     step's loss and gradients launch K6 twice and K7 twice and no other
     kernel, and agree with the plain path on the CPU (the loss to 1e-5;
     each float leaf and the view-space gradient per leaf relative to its
-    largest entry: the devices pose the mesh with other roundings)."""
+    largest entry: the devices pose the mesh with other roundings).  The
+    step's graph on the card holds no gather of the parameter table by the
+    worklists' (W, C) ids: K6 gathers, K7 scatters."""
     kw = dict(width=96, height=64, mesh=(20, 18))
     runs = {}
     for device in (dev, torch.device("cpu")):
@@ -418,9 +572,17 @@ def test_train_step_launches_k6_and_k7_twice_and_matches_the_cpu(dev):
         fn = tapp.make_loss_and_grads(
             avatar, OptimizationParams(), bench_appearance.ACTIVE_SH, False,
             tile_capacity=512, work_cap=64, chunk=32)
+        gathers = _index_gathers(monkeypatch) if device.type == "cuda" \
+            else None
         _build.reset_launch_counts()
         loss, aux, grads = fn(params, 0, 0, cam[0], gt, msk, ao, *cam[1:])
         runs[device.type] = (loss, aux, grads, _build.launch_counts())
+        monkeypatch.undo()
+        if gathers is not None:
+            # phase 1's ids are (tiles, 32), phase 2's (work_cap, 32); the
+            # faces' (F, 3) and the bindings' gathers stay
+            assert gathers and not {(24, 32), (64, 32)} & set(gathers), \
+                gathers
     loss, aux, grads, launches = runs["cuda"]
     assert launches == {kcomp.KERNEL: 2, kcomp.KERNEL_BWD: 2}
     loss_c, aux_c, grads_c, _ = runs["cpu"]

@@ -3,7 +3,9 @@ the (tile, depth)-sorted instances (packed and two-key sorts, footprint
 tiers, big_overflow) with exact equality, ``rasterize`` through the dense
 compositor (work_cap=0, and two-tier) and the worklist compositor (K6's
 plain version against K6 in interpret mode; chunk 32 and 128, stop_eps
-with tiers, an overflowing work_cap), and the gradient wrt opacity.
+with tiers, an overflowing work_cap), the gradient wrt opacity, and a
+frame's autograd graph, which holds no gather of the parameter table by
+the worklists' (W, C) ids (K6 gathers them itself).
 
 Scenes keep their depths 1e-3 apart (the depth rank decides the
 compositing order, so an ulp of difference between two matmuls must not
@@ -204,3 +206,33 @@ def test_rasterize_gradient_wrt_opacity_matches_jax():
     (grad,) = torch.autograd.grad(torch.sum(o["render"] ** 2), op)
     assert float(np.abs(ref).max()) > 1.0
     np.testing.assert_allclose(grad.numpy(), ref, atol=GRAD_TOL)
+
+
+def _graph_nodes(out):
+    """Every node of ``out``'s autograd graph."""
+    nodes, stack = set(), [out.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is not None and node not in nodes:
+            nodes.add(node)
+            stack += [f for f, _ in node.next_functions]
+    return nodes
+
+
+def test_rasterize_worklist_gathers_no_item_parameters_in_autograd():
+    """The worklist compositor hands the parameter table and the (W, C)
+    instance ids to segment_composite_gather: the graph of a frame holds
+    no gather of the table by the ids (whose backward is an index_put
+    onto the table's rows), only the compositor's own node."""
+    xyz, colors, opac, cov = _scene(600, seed=8)
+    _, _, tca = _cams()
+    op = t(opac).requires_grad_(True)
+    o = tr.rasterize(t(xyz), t(colors), op, t(cov), tca, torch.zeros(3),
+                     64, 64, tile_capacity=256, work_cap=512)
+    assert int(o["n_items"]) > 0
+    nodes = _graph_nodes(torch.sum(o["render"] ** 2))
+    index_shapes = [tuple(i.shape) for node in nodes
+                    if node.name().startswith("IndexBackward")
+                    for i in node._saved_indices if i is not None]
+    assert not [s for s in index_shapes if len(s) == 2], index_shapes
+    assert "_SegmentCompositeBackward" in {node.name() for node in nodes}

@@ -29,7 +29,11 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      and mover fields, K3 G2P, K4 splat, K8 sand stress) at the paths'
      shapes against its plain version on the card; its device time from
      CUDA-graph replays (and, as eager_ms, back-to-back eager calls),
-     beside its plain version's time and its memory/compute bound;
+     beside its plain version's time and its memory/compute bound; K2
+     also on the cloth drop's particles in a random order and on path B's
+     state, with its blocks counted by branch (shared-memory tile or
+     straight into the grid); the backward of K1, K2, K5, K3 and K8
+     (autograd over the plain version) timed at the same shapes;
   5. 10 substeps on the kernel path against 10 on the plain path (CPU)
      from the same perturbed states, for a few seeds:
      - the cloth drop, beside two sound plain runs an ulp apart and two
@@ -72,7 +76,19 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      one densification pass (alive splats before and after, at least one
      per face); LOSS_STEPS steps, the opacity group frozen, toward the
      avatar rendered with a second seed's colours, whose L1 must fall by
-     more than through K7 with its colour rows zeroed.
+     more than through K7 with its colour rows zeroed;
+  8. the differentiated substep: GRAD_SUBSTEPS substeps of the full-width
+     cloth drop (stretched in its plane, d3 scaled to 0.9, off the return
+     map's R33 = 1 branch point: ``stretched``) and the gradient of a
+     seeded vertex loss w.r.t. mu, lam, mass and R_inv, with the launch
+     counters reset just before and read just after (K1, K2, K5, K3 once
+     per substep; the backward launches none);
+     ms per differentiated substep, the backward's share, device busy and
+     peak memory; the gradient against the same gradient through the
+     plain path on the CPU, per leaf relative to its largest entry (the
+     elements that cross R33 = 1 between the two counted and left out),
+     beside a wrong path: the kernels' outputs detached, as before they
+     had a backward.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -181,6 +197,13 @@ LOSS_STEPS = 30
 K7_REL_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
 
+# the differentiated substep (phase 8): the card's gradient against the
+# CPU plain path's, per leaf as max |a - b| over max |cpu|: float32 sums
+# in other orders (K2's atomics among them) carried through
+# GRAD_SUBSTEPS substeps forward and back
+GRAD_SUBSTEPS = 3
+SUBSTEP_GRAD_TOL = 1e-3
+
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
 CSRC = "mpmavatar_tpu_torch/ops/csrc/"
@@ -234,8 +257,11 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
 def profile_device(fn):
     """torch.profiler over one call of ``fn``: (device-busy seconds,
     profiled wall seconds, [(kernel name, device us, launches)] by device
-    time).  Only the device-side entries are summed: an operator's entry
-    repeats the time of the kernels it launched."""
+    time).  Only the device-side kernel and copy entries are summed: an
+    operator's entry repeats the time of the kernels it launched, and so
+    does a user annotation's range on the device (the optimizer's
+    ``Optimizer.step#Adam.step``), which also has a host-side entry of
+    its name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -246,9 +272,12 @@ def profile_device(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    averages = prof.key_averages()
+    host_keys = {e.key for e in averages if e.device_type != DeviceType.CUDA}
     rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
+    for e in averages:
+        if e.device_type != DeviceType.CUDA or e.key in host_keys or getattr(
+                e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -955,6 +984,153 @@ def descent(dev, raster, patch=None) -> list:
     return l1
 
 
+def stretched(x, d):
+    """The cloth stretched in its plane about (1, y, 1), x by 1.15 and z
+    by 0.9, with d3 at 0.9: (x, d).  At rest mu and lam see only the
+    strain the substeps make, near the positions' rounding, so the
+    card's and the CPU's gradients w.r.t. them part by ~1e-2 of their
+    largest; stretched, the strain stands well above it.  d3 at 0.9
+    keeps every element on the return map's contact branch, away from
+    R33 = 1."""
+    import torch
+    scale = torch.tensor([1.15, 1.0, 0.9], device=x.device)
+    centre = torch.tensor([1.0, 0.0, 1.0], device=x.device)
+    d = d * scale[:, None]              # row a of each column: axis a
+    d[:, :, 2] *= 0.9
+    return centre + (x - centre) * scale, d
+
+
+def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
+              per_sub) -> float:
+    """Phase 8, the differentiated substep; returns its ms per substep."""
+    import torch
+    from mpmavatar_tpu_torch.core import linalg
+    from mpmavatar_tpu_torch.ops import _autograd, _build
+    cfg = solver.cfg
+    E = cfg.n_elements
+    gen = torch.Generator().manual_seed(3000)
+    v0 = 0.05 * torch.randn((cfg.n_particles, 3), generator=gen)
+    weights = torch.randn((cfg.n_vertices, 3), generator=gen)
+    names = ("mu", "lam", "mass", "R_inv")
+
+    def run(slv, st0, m0):
+        """GRAD_SUBSTEPS substeps and the loss's gradient: (gradients,
+        d after each substep, forward s, backward s)."""
+        device = st0.x.device
+        sync = torch.cuda.synchronize if device.type == "cuda" else (
+            lambda: None)
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (m0.mu, m0.lam, st0.mass, st0.R_inv)]
+        x, d = stretched(st0.x, st0.d)
+        s = dataclasses.replace(st0, x=x, d=d, v=v0.to(device),
+                                mass=leaves[2], R_inv=leaves[3])
+        m = dataclasses.replace(m0, mu=leaves[0], lam=leaves[1])
+        sync()
+        t0, t, ds = time.perf_counter(), 0.0, []
+        for _ in range(GRAD_SUBSTEPS):
+            s, t = slv.frame(s, m, DT, 1, t)
+            ds.append(s.d.detach())
+        loss = (s.x[E:] * weights.to(device)).sum()
+        sync()
+        t1 = time.perf_counter()
+        if loss.requires_grad:
+            grads = torch.autograd.grad(loss, leaves)
+        else:           # no path to a leaf: every one ran through a kernel
+            grads = [torch.zeros_like(a) for a in leaves]
+        sync()
+        return grads, ds, t1 - t0, time.perf_counter() - t1
+
+    run(solver, state0, model)                     # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    grads, ds, fwd_s, bwd_s = run(solver, state0, model)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: per * GRAD_SUBSTEPS for k, per in per_sub.items()}
+    if launches != want:
+        raise AssertionError(f"differentiated substep: launches {launches}, "
+                             f"expected {want}")
+    busy_s, prof_wall, rows = profile_device(
+        lambda: run(solver, state0, model))
+    ms = 1e3 * (fwd_s + bwd_s) / GRAD_SUBSTEPS
+    print(f"differentiated substep (cloth drop, {GRAD_SUBSTEPS} substeps "
+          f"forward and back): launches {launches}; {ms:.4f} ms per "
+          f"differentiated substep (forward {1e3 * fwd_s / GRAD_SUBSTEPS:.4f},"
+          f" backward {1e3 * bwd_s / GRAD_SUBSTEPS:.4f}: the backward's share "
+          f"{100 * bwd_s / (fwd_s + bwd_s):.1f}%); peak allocated "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} GiB above "
+          f"the {base / 2 ** 30:.3f} GiB held before)")
+    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                      for key, us, calls in rows)
+    (OUT / "chip_smoke_profile_grad_substep.txt").write_text(table + "\n")
+    if rows:
+        print(f"differentiated substep profile: device busy "
+              f"{1e3 * busy_s / GRAD_SUBSTEPS:.4f} ms/substep in "
+              f"{sum(r[2] for r in rows) / GRAD_SUBSTEPS:.1f} "
+              f"kernels/substep, {1e3 * prof_wall / GRAD_SUBSTEPS:.4f} "
+              f"ms/substep profiled wall; against the unprofiled run the "
+              f"device is idle "
+              f"{100 * max(0.0, 1 - busy_s * 1e3 / GRAD_SUBSTEPS / ms):.1f}% "
+              f"of the time")
+        for key, us, calls in rows[:8]:
+            print(f"  {us / GRAD_SUBSTEPS:10.2f} us/substep "
+                  f"{calls / GRAD_SUBSTEPS:6.1f}/substep  {key[:90]}")
+    else:
+        print("differentiated substep profile: the profiler recorded no "
+              "device time; device busy not measured")
+
+    grads_cpu, ds_cpu, fwd_c, bwd_c = run(solver_cpu, state0.to("cpu"),
+                                          model_cpu)
+    print(f"the plain path on the CPU: {1e3 * (fwd_c + bwd_c):.1f} ms for "
+          f"{GRAD_SUBSTEPS} differentiated substeps (backward "
+          f"{1e3 * bwd_c:.1f} ms)")
+    # the kernels' outputs detached, as before they had a backward
+    real_call = _autograd.call
+    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    try:
+        wrong = run(solver, state0, model)[0]
+    finally:
+        _autograd.call = real_call
+
+    r33 = lambda d: linalg.qr3_pos(d)[1][:, 2, 2].cpu()
+    crossed = torch.zeros(E, dtype=torch.bool)
+    for a, b in zip(ds, ds_cpu):
+        crossed |= (r33(a) > 1.0) != (r33(b) > 1.0)
+    # the crossed elements' own rows left out
+    keep_p = torch.cat([~crossed, torch.ones(cfg.n_particles - E,
+                                             dtype=torch.bool)])
+    keep = {"mu": keep_p, "lam": keep_p, "mass": None, "R_inv": ~crossed}
+
+    def err(name, a, b):
+        a = a.cpu()
+        if keep[name] is not None:
+            a, b = a[keep[name]], b[keep[name]]
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    sound = {n: err(n, a, b) for n, a, b in zip(names, grads, grads_cpu)}
+    bad = {n: err(n, a, b) for n, a, b in zip(names, wrong, grads_cpu)}
+    print(f"differentiated substep against the plain path: "
+          f"{int(crossed.sum())} of {E} elements crossed R33 = 1 between "
+          f"them; per leaf max rel err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in sound.items())
+          + f" (tol {SUBSTEP_GRAD_TOL:.0e}); largest |gradient| "
+          + ", ".join(f"{n} {float(g.abs().max()):.3e}"
+                      for n, g in zip(names, grads_cpu))
+          + "; wrong path (the kernels' outputs detached): "
+          + ", ".join(f"{n} {e:.3e}" for n, e in bad.items()))
+    if not all(float(g.abs().max()) > 0 for g in grads_cpu):
+        raise AssertionError("a leaf's gradient is zero on the plain path")
+    if not max(sound.values()) <= SUBSTEP_GRAD_TOL:
+        raise AssertionError("the differentiated substep disagrees with the "
+                             "plain path")
+    if not min(bad.values()) > SUBSTEP_GRAD_TOL:
+        raise AssertionError("the gradient limit does not separate the "
+                             "wrong path")
+    return ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1174,17 +1350,54 @@ def main() -> int:
     sel = (st.selection == 0).float()
     k2_in = (st.x, st.v, c_eff, st.mass, sel, DT * stress_e, DT * vforce,
              GRID, cfg.inv_dx, cfg.dx)
-    k2 = ktransfer.p2g(*k2_in)
-    k2_ref = ktransfer.p2g_plain(*k2_in)
     n_cells = GRID ** 3
-    # bytes: x, v, C, mass, sel (17 floats) per particle, stress (9) per
-    # non-vertex, vforce (3) per vertex, 4 floats out per cell; ~1800 FP32
-    # operations per particle (27 nodes x ~66, weights ~30)
-    check("p2g", k2, k2_ref, "transfer.cu",
-          "mpmavatar_tpu/ops/pallas_transfer.py:225",
-          lambda: ktransfer.p2g(*k2_in), lambda: ktransfer.p2g_plain(*k2_in),
-          4 * (17 * P + 9 * E + 3 * cfg.n_vertices + 4 * n_cells),
-          P * 1800.0, launches_a)
+
+    def p2g_check(label, args, launches_of):
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        out = ktransfer.p2g(*args, branch_counts=counts)
+        ref = ktransfer.p2g_plain(*args)
+        tile, direct = counts.tolist()
+        n_p, nnv, g = args[0].shape[0], args[5].shape[0], args[7]
+        fill_ms = graph_ms(lambda: (torch.zeros((g ** 3, 3), device=dev),
+                                    torch.zeros((g ** 3,), device=dev)))
+        # bytes: x, v, C, mass, sel (17 floats) per particle, stress (9)
+        # per non-vertex, vforce (3) per vertex, 4 floats out per cell;
+        # ~1800 FP32 operations per particle (27 nodes x ~66, weights ~30)
+        check("p2g", out, ref, "transfer.cu",
+              "mpmavatar_tpu/ops/pallas_transfer.py:225",
+              lambda: ktransfer.p2g(*args),
+              lambda: ktransfer.p2g_plain(*args),
+              4 * (17 * n_p + 9 * nnv + 3 * (n_p - nnv) + 4 * g ** 3),
+              n_p * 1800.0, launches_of, label=label,
+              extra={"fill_ms": fill_ms, "particles": n_p, "grid": g,
+                     "tile_blocks": tile, "direct_blocks": direct})
+        print(f"  {label or 'p2g'}: P={n_p}, {g}^3; {tile} blocks through "
+              f"the shared-memory tile, {direct} straight into the grid; "
+              f"the wrapper's two zero fills alone {fill_ms:.4f} ms")
+        return out
+
+    k2 = p2g_check(None, k2_in, launches_a)
+    # the same particles in a random order (elements among elements,
+    # vertices among vertices, each with its own stress or force)
+    nnv = cfg.n_no_vertices
+    g_perm = torch.Generator().manual_seed(11)
+    perm = torch.cat([torch.randperm(nnv, generator=g_perm),
+                      nnv + torch.randperm(cfg.n_vertices,
+                                           generator=g_perm)]).to(dev)
+    p2g_check("p2g (the cloth drop's particles in a random order)",
+              (*(a[perm] for a in k2_in[:5]), k2_in[5][perm[:nnv]],
+               k2_in[6][perm[nnv:] - nnv], *k2_in[7:]), launches_a)
+    # path B's state after its run: the cloth in mesh order, the sand in
+    # the random order of its build
+    _, _, _, stress_b, vf_b = stepping.compute_stress(cfg_b, state_b,
+                                                      model_b, DT)
+    e_b = cfg_b.n_elements
+    stress_b = torch.cat([stress_b[:e_b], state_b.vol[
+        e_b:cfg_b.n_no_vertices, None, None] * stress_b[e_b:]])
+    p2g_check(f"p2g (path B, {GRID_B}^3)",
+              (state_b.x, state_b.v, state_b.C, state_b.mass,
+               (state_b.selection == 0).float(), DT * stress_b, DT * vf_b,
+               GRID_B, cfg_b.inv_dx, cfg_b.dx), launches_b)
 
     # K4 at path A's and path B's shapes: the collider's faces (CH = 6)
     # and the joint points (CH = 3), from the paths' final states
@@ -1379,6 +1592,44 @@ def main() -> int:
     sand_check("sand_stress (path B's 100,000 sand particles)", sand_b)
     sand_check("sand_stress (tip / cone / reflected set)", sand_set)
 
+    # the backwards: autograd over each plain version through the
+    # wrapper's autograd Function, at the shapes above, from seeded
+    # cotangents (the backward launches no kernel)
+    def backward_check(name, fn, args, wrt):
+        leaves = [a.detach().clone().requires_grad_(i in wrt)
+                  if torch.is_tensor(a) else a for i, a in enumerate(args)]
+        outs = fn(*leaves)
+        outs = [outs] if torch.is_tensor(outs) else list(outs)
+        if not all(o.grad_fn is not None for o in outs):
+            raise AssertionError(f"{name}: an output carries no grad_fn")
+        g_cot = torch.Generator(device=dev).manual_seed(5)
+        cots = [torch.randn(o.shape, generator=g_cot, device=dev)
+                for o in outs]
+        wrt_leaves = [leaves[i] for i in wrt]
+        run = lambda: torch.autograd.grad(outs, wrt_leaves, cots,
+                                          retain_graph=True)
+        _build.reset_launch_counts()
+        eager = event_ms(run, reps=3, inner=3)
+        if _build.launch_counts():
+            raise AssertionError(f"{name}: its backward launched "
+                                 f"{_build.launch_counts()}")
+        busy, _, rows = profile_device(run)
+        results[name].update(bwd_ms=1e3 * busy, bwd_eager_ms=eager)
+        print(f"{name} backward (autograd over the plain version): device "
+              f"{1e3 * busy:.4f} ms in {sum(r[2] for r in rows)} kernels, "
+              f"eager {eager:.4f} ms; forward {results[name]['ms']:.4f} ms")
+
+    backward_check("cloth_stress", kstress.cloth_stress, k1_in,
+                   (0, 1, 2, 4, 5, 6, 7, 8))
+    backward_check("p2g", ktransfer.p2g, k2_in, tuple(range(7)))
+    backward_check("grid_pipeline",
+                   lambda *a: pipeline(*a, 0.01, DT, surf), k5_in,
+                   tuple(range(9)))
+    backward_check("g2p", ktransfer.g2p, (st.x, k5, GRID, cfg.inv_dx),
+                   (0, 1))
+    backward_check("sand_stress", kstress.sand_stress, sand_b,
+                   (0, 1, 3, 4, 5))
+
     # ---- 5. kernel path vs plain path over several substeps ------------
     from mpmavatar_tpu_torch.core import linalg
     solver_cpu = type(solver)(cfg, device="cpu")
@@ -1522,8 +1773,13 @@ def main() -> int:
     # ---- 7. the train path --------------------------------------------
     train_ms, train_launches = train_path(dev, check, big_call)
 
+    # ---- 8. the differentiated substep ----------------------------------
+    grad_ms = grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
+                        per_sub)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
-          f"{ms_b:.4f} ms/substep; render "
+          f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
+          f"ms/substep; render "
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
           + f" ms/frame; train step {train_ms:.4f} ms on {smi}; chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")

@@ -124,7 +124,7 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # *_info queries: after reading the kernel's attributes)
 _SIGNATURES = {
     "launch_cloth_stress": [_P] * 12 + [_I, _P],
-    "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P],
+    "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P, _P],
     "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P],
     "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _F, _I, _I, _I,
                                          _I, _I, _I, _P, _P],

@@ -14,11 +14,40 @@
 //
 // P2G bound on an H100: its ~80 B per particle of input and the 16 B per
 // cell of dense output (~42 MB at P = 99,737, G = 128) take ~13 us at
-// 3.35 TB/s; what limits it in practice is the 27 x 4 = 108 float
-// atomicAdds per particle (~10.8 M per substep), serialised where
-// neighbouring particles hit the same cells.  Design: one thread per
-// particle, the stencil weights in registers, atomics straight into the
-// zeroed dense grid (binning or shared-memory accumulation is later work).
+// 3.35 TB/s.  The first design (one thread per particle, 27 x 4 = 108
+// float atomicAdds per particle straight into the zeroed dense grid, ~10.8
+// M per substep) ran at 0.1047 ms, 12% of that bound, on an H100 80GB
+// HBM3 at 700 W: the atomics serialise where neighbouring particles hit
+// the same cells, and on a cloth they always do.
+//
+// Design: accumulate in shared memory, send each cell to the grid once
+// per block.  A block of kP2GThreads threads takes as many consecutive
+// particles, one each, and reduces their stencil bounding box (min/max of
+// base per axis, plus 3).  Where the box fits a tile of kTileCells cells
+// (4 channels of int32: 32 KB), the block adds every stencil node into
+// the tile with shared-memory atomics, then adds each nonzero tile cell
+// into the grid with one global atomic per channel.  On the cloth, whose
+// particles come in mesh order, 128 consecutive particles lie on one or
+// two rows of the mesh: their box is a few hundred to ~900 cells, so the
+// grid sees a few atomics per particle instead of 108.  A block whose box
+// does not fit (particles in random order, such as the bench's sand
+// block, or a run that spans two distant rows of the mesh) adds its nodes
+// straight into the grid, as the first design did; both branches apply
+// the index rule below, the tile one when it flushes.  The optional
+// branch_counts (int32 [2]) counts the blocks of each branch.
+//
+// The tile holds fixed point, not float: on the H100 a float tile of the
+// same shape, added into with float shared-memory atomics, ran markedly
+// slower than int32 atomics into this one.  Each
+// block scales channel a by 2^31 / (kP2GThreads * 1.001 * m_a), m_a the
+// largest bound of a node value over its particles (p2g_bound), so no
+// cell's sum can overflow and one unit is ~6e-8 m_a: below the float
+// rounding the plain version's sums carry.  Within a block the sums are
+// exact, so only the order of the flushes' global atomics varies.
+// Kept over warp aggregation (__match_any_sync on the flat cell per
+// stencil node, one atomic per distinct cell per warp): 32 consecutive
+// particles of the cloth still span ~10 cells along a mesh row, so a warp
+// saves ~3x of the global atomics, where a block's tile saves more.
 //
 // G2P bound: memory — 12 B of position in, 84 B out per particle, plus the
 // grid cells the stencils touch.  Design: one thread per particle gathering
@@ -42,6 +71,162 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3],
   dw[2] = fx - 0.5f;
 }
 
+constexpr int kP2GThreads = 128;     // one particle per thread
+constexpr int kP2GMinBlocks = 8;     // blocks per SM: <= 64 registers
+constexpr int kTileCells = 2048;     // x 4 channels x 4 B = 32 KB
+
+// One particle's stencil data and attributes, in registers.
+struct P2GParticle {
+  int base[3];
+  float fx[3], w[3][3], dw[3][3];     // w[axis][offset]
+  float s, ms, vp[3], cm[9], sm[9];   // sm: stress, or vforce in sm[0..2]
+  bool vertex;
+};
+
+__device__ __forceinline__ void p2g_load(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const float* __restrict__ c_eff, const float* __restrict__ mass,
+    const float* __restrict__ sel, const float* __restrict__ stress,
+    const float* __restrict__ vforce, int p, int n_nonvertex, float inv_dx,
+    P2GParticle& q) {
+  for (int a = 0; a < 3; ++a) {
+    const float gp = x[3 * p + a] * inv_dx;
+    q.base[a] = static_cast<int>(floorf(gp - 0.5f));
+    q.fx[a] = gp - static_cast<float>(q.base[a]);
+    axis_weights(q.fx[a], q.w[a], q.dw[a]);
+  }
+  q.s = sel[p];
+  q.ms = mass[p] * q.s;
+  for (int a = 0; a < 3; ++a) q.vp[a] = v[3 * p + a];
+  for (int k = 0; k < 9; ++k) q.cm[k] = c_eff[9 * p + k];
+  q.vertex = p >= n_nonvertex;
+  if (q.vertex) {
+    for (int a = 0; a < 3; ++a) q.sm[a] = vforce[3 * (p - n_nonvertex) + a];
+  } else {
+    for (int k = 0; k < 9; ++k) q.sm[k] = stress[9 * p + k];
+  }
+}
+
+// Stencil node (i, j, k) of particle q: out = (momentum + force, mass).
+__device__ __forceinline__ void p2g_node(const P2GParticle& q, int i, int j,
+                                         int k, float inv_dx, float dx,
+                                         float out[4]) {
+  const float wt = q.w[0][i] * q.w[1][j] * q.w[2][k];
+  const float dpos[3] = {(i - q.fx[0]) * dx, (j - q.fx[1]) * dx,
+                         (k - q.fx[2]) * dx};
+  float force[3];
+  if (q.vertex) {
+    for (int a = 0; a < 3; ++a) force[a] = wt * q.sm[a];
+  } else {
+    const float gw[3] = {q.dw[0][i] * q.w[1][j] * q.w[2][k] * inv_dx,
+                         q.w[0][i] * q.dw[1][j] * q.w[2][k] * inv_dx,
+                         q.w[0][i] * q.w[1][j] * q.dw[2][k] * inv_dx};
+    for (int a = 0; a < 3; ++a)
+      force[a] = -(q.sm[3 * a] * gw[0] + q.sm[3 * a + 1] * gw[1]
+                   + q.sm[3 * a + 2] * gw[2]);
+  }
+  const float mw = wt * q.ms;
+  for (int a = 0; a < 3; ++a) {
+    const float mom = q.vp[a] + (q.cm[3 * a] * dpos[0]
+                                 + q.cm[3 * a + 1] * dpos[1]
+                                 + q.cm[3 * a + 2] * dpos[2]);
+    out[a] = mw * mom + q.s * force[a];
+  }
+  out[3] = mw;
+}
+
+// An upper bound of |p2g_node(q, ...)[a]| over the 27 nodes, per channel:
+// w <= 1, |o - fx| <= 1.5, |dw| <= 1 and w <= 0.75 in grad w.
+__device__ __forceinline__ void p2g_bound(const P2GParticle& q, float inv_dx,
+                                          float dx, float b[4]) {
+  for (int a = 0; a < 3; ++a) {
+    const float c = fabsf(q.cm[3 * a]) + fabsf(q.cm[3 * a + 1])
+                    + fabsf(q.cm[3 * a + 2]);
+    const float f = q.vertex
+        ? fabsf(q.sm[a])
+        : 0.5625f * inv_dx * (fabsf(q.sm[3 * a]) + fabsf(q.sm[3 * a + 1])
+                              + fabsf(q.sm[3 * a + 2]));
+    b[a] = fabsf(q.ms) * (fabsf(q.vp[a]) + 1.5f * dx * c) + fabsf(q.s) * f;
+  }
+  b[3] = fabsf(q.ms);
+}
+
+// The scatter's index rule: the cell of grid coordinates (gi, gj, gk), or
+// -1 where it is dropped.
+__device__ __forceinline__ long long grid_cell(int gi, int gj, int gk,
+                                               int G) {
+  const long long n_cells = static_cast<long long>(G) * G * G;
+  const long long flat =
+      (static_cast<long long>(gi) * G + gj) * G + gk;
+  const long long cell = flat < 0 ? flat + n_cells : flat;
+  return (cell < 0 || cell >= n_cells) ? -1 : cell;
+}
+
+__device__ __forceinline__ void add_cell(float* __restrict__ grid_v,
+                                         float* __restrict__ grid_m,
+                                         long long cell, const float val[4]) {
+  for (int a = 0; a < 3; ++a) atomicAdd(grid_v + 3 * cell + a, val[a]);
+  atomicAdd(grid_m + cell, val[3]);
+}
+
+// The 27 nodes of particle q into a channel-major fixed-point tile
+// (channel a of cell c at t[a * kTileCells + c], in units of 1 / scale[a])
+// whose box starts at lo, e1 x e2 cells on axes 1 and 2.
+__device__ __forceinline__ void tile_add(int* t, const int lo[3], int e1,
+                                         int e2, const P2GParticle& q,
+                                         float inv_dx, float dx,
+                                         const float scale[4]) {
+  const int o0 = q.base[0] - lo[0], o1 = q.base[1] - lo[1],
+            o2 = q.base[2] - lo[2];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      for (int k = 0; k < 3; ++k) {
+        float val[4];
+        p2g_node(q, i, j, k, inv_dx, dx, val);
+        int* c = t + ((o0 + i) * e1 + o1 + j) * e2 + o2 + k;
+        for (int a = 0; a < 4; ++a)
+          atomicAdd(c + a * kTileCells, __float2int_rn(val[a] * scale[a]));
+      }
+}
+
+// Cells c0, c0 + step, ... < cells of such a tile into the grid, one
+// global atomic per channel of each nonzero cell, by the index rule.
+__device__ __forceinline__ void tile_flush(const int* t, const int lo[3],
+                                           int e1, int e2, int cells, int c0,
+                                           int step, const float scale[4],
+                                           int G, float* __restrict__ grid_v,
+                                           float* __restrict__ grid_m) {
+  for (int c = c0; c < cells; c += step) {
+    const int raw[4] = {t[c], t[kTileCells + c], t[2 * kTileCells + c],
+                        t[3 * kTileCells + c]};
+    if (raw[0] == 0 && raw[1] == 0 && raw[2] == 0 && raw[3] == 0) continue;
+    const int lk = c % e2, lj = (c / e2) % e1, li = c / (e2 * e1);
+    const long long cell = grid_cell(lo[0] + li, lo[1] + lj, lo[2] + lk, G);
+    if (cell < 0) continue;
+    float val[4];
+    for (int a = 0; a < 4; ++a)
+      val[a] = static_cast<float>(raw[a]) / scale[a];
+    add_cell(grid_v, grid_m, cell, val);
+  }
+}
+
+// The 27 nodes of particle q straight into the grid.
+__device__ __forceinline__ void direct_add(const P2GParticle& q, int G,
+                                           float inv_dx, float dx,
+                                           float* __restrict__ grid_v,
+                                           float* __restrict__ grid_m) {
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      for (int k = 0; k < 3; ++k) {
+        const long long cell =
+            grid_cell(q.base[0] + i, q.base[1] + j, q.base[2] + k, G);
+        if (cell < 0) continue;
+        float val[4];
+        p2g_node(q, i, j, k, inv_dx, dx, val);
+        add_cell(grid_v, grid_m, cell, val);
+      }
+}
+
 // K2.  Contract: stress (n_nonvertex, 3, 3) and vforce (n - n_nonvertex,
 // 3) arrive multiplied by dt (traditional stress also by vol); the kernel
 // applies mass*sel to the momentum and sel to the force terms, so
@@ -51,72 +236,86 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3],
 // with the scatter's index rule of the JAX package (.at[].add(mode=
 // "drop")): a flat index in [-G^3, 0) wraps to flat + G^3, and what still
 // lies outside [0, G^3) is dropped.
-__global__ void p2g_kernel(const float* __restrict__ x,
-                           const float* __restrict__ v,
-                           const float* __restrict__ c_eff,
-                           const float* __restrict__ mass,
-                           const float* __restrict__ sel,
-                           const float* __restrict__ stress,
-                           const float* __restrict__ vforce, int n,
-                           int n_nonvertex, int G, float inv_dx, float dx,
-                           float* __restrict__ grid_v,
-                           float* __restrict__ grid_m) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int base[3];
-  float fx[3], w[3][3], dw[3][3];  // w[axis][offset]
+__global__ void __launch_bounds__(kP2GThreads, kP2GMinBlocks) p2g_kernel(
+    const float* __restrict__ x, const float* __restrict__ v,
+    const float* __restrict__ c_eff, const float* __restrict__ mass,
+    const float* __restrict__ sel, const float* __restrict__ stress,
+    const float* __restrict__ vforce, int n, int n_nonvertex, int G,
+    float inv_dx, float dx, float* __restrict__ grid_v,
+    float* __restrict__ grid_m, int* __restrict__ branch_counts) {
+  constexpr int kWarps = kP2GThreads / 32;
+  extern __shared__ int tile[];                  // 4 x kTileCells
+  __shared__ int s_lo[3][kWarps], s_hi[3][kWarps], s_bound[4][kWarps];
+  __shared__ int s_box[3], s_ext[3], s_use_tile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = blockIdx.x * kP2GThreads + threadIdx.x;
+  const bool live = p < n;
+  P2GParticle q;
+  if (live)
+    p2g_load(x, v, c_eff, mass, sel, stress, vforce, p, n_nonvertex, inv_dx,
+             q);
+
+  // the block's stencil bounding box, and the largest node value of its
+  // particles per channel (non-negative floats order as their bits)
+  float b[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) p2g_bound(q, inv_dx, dx, b);
   for (int a = 0; a < 3; ++a) {
-    const float gp = x[3 * p + a] * inv_dx;
-    base[a] = static_cast<int>(floorf(gp - 0.5f));
-    fx[a] = gp - static_cast<float>(base[a]);
-    axis_weights(fx[a], w[a], dw[a]);
-  }
-  const float s = sel[p];
-  const float ms = mass[p] * s;
-  float vp[3], cm[9];
-  for (int a = 0; a < 3; ++a) vp[a] = v[3 * p + a];
-  for (int k = 0; k < 9; ++k) cm[k] = c_eff[9 * p + k];
-  const bool vertex = p >= n_nonvertex;
-  float sm[9], fv[3];
-  if (vertex) {
-    for (int a = 0; a < 3; ++a) fv[a] = vforce[3 * (p - n_nonvertex) + a];
-  } else {
-    for (int k = 0; k < 9; ++k) sm[k] = stress[9 * p + k];
-  }
-  const long long n_cells = static_cast<long long>(G) * G * G;
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      for (int k = 0; k < 3; ++k) {
-        const long long flat =
-            (static_cast<long long>(base[0] + i) * G + (base[1] + j)) * G
-            + (base[2] + k);
-        const long long cell = flat < 0 ? flat + n_cells : flat;
-        if (cell < 0 || cell >= n_cells) continue;
-        const float wt = w[0][i] * w[1][j] * w[2][k];
-        const float dpos[3] = {(i - fx[0]) * dx, (j - fx[1]) * dx,
-                               (k - fx[2]) * dx};
-        float force[3];
-        if (vertex) {
-          for (int a = 0; a < 3; ++a) force[a] = wt * fv[a];
-        } else {
-          const float gw[3] = {dw[0][i] * w[1][j] * w[2][k] * inv_dx,
-                               w[0][i] * dw[1][j] * w[2][k] * inv_dx,
-                               w[0][i] * w[1][j] * dw[2][k] * inv_dx};
-          for (int a = 0; a < 3; ++a)
-            force[a] = -(sm[3 * a] * gw[0] + sm[3 * a + 1] * gw[1]
-                         + sm[3 * a + 2] * gw[2]);
-        }
-        const float mw = wt * ms;
-        for (int a = 0; a < 3; ++a) {
-          const float mom = vp[a] + (cm[3 * a] * dpos[0]
-                                     + cm[3 * a + 1] * dpos[1]
-                                     + cm[3 * a + 2] * dpos[2]);
-          atomicAdd(grid_v + 3 * cell + a, mw * mom + s * force[a]);
-        }
-        atomicAdd(grid_m + cell, mw);
-      }
+    const int lo = __reduce_min_sync(0xffffffffu, live ? q.base[a]
+                                                       : 0x7fffffff);
+    const int hi = __reduce_max_sync(0xffffffffu, live ? q.base[a]
+                                                       : -0x7fffffff - 1);
+    if (lane == 0) {
+      s_lo[a][warp] = lo;
+      s_hi[a][warp] = hi;
     }
   }
+  for (int a = 0; a < 4; ++a) {
+    const int m = __reduce_max_sync(0xffffffffu, __float_as_int(b[a]));
+    if (lane == 0) s_bound[a][warp] = m;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long cells = 1;
+    for (int a = 0; a < 3; ++a) {
+      int l = s_lo[a][0], h = s_hi[a][0];
+      for (int w = 1; w < kWarps; ++w) {
+        l = min(l, s_lo[a][w]);
+        h = max(h, s_hi[a][w]);
+      }
+      const long long ext = static_cast<long long>(h) - l + 3;
+      cells *= ext;
+      s_box[a] = l;
+      s_ext[a] = static_cast<int>(min(ext, 1LL << 20));
+    }
+    s_use_tile = cells <= kTileCells;
+    if (branch_counts != nullptr)
+      atomicAdd(branch_counts + (s_use_tile ? 0 : 1), 1);
+  }
+  __syncthreads();
+
+  if (!s_use_tile) {                       // straight into the grid
+    if (live) direct_add(q, G, inv_dx, dx, grid_v, grid_m);
+    return;
+  }
+  // the tile's fixed point: a cell sums at most kP2GThreads node values,
+  // each at most the block's bound, so |sum| * scale < 2^31
+  float scale[4];
+  for (int a = 0; a < 4; ++a) {
+    float m = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      m = fmaxf(m, __int_as_float(s_bound[a][w]));
+    scale[a] = 2147483648.f / (kP2GThreads * 1.001f * fmaxf(m, 1e-30f));
+  }
+  const int lo[3] = {s_box[0], s_box[1], s_box[2]};
+  const int e1 = s_ext[1], e2 = s_ext[2];
+  const int cells = s_ext[0] * e1 * e2;
+  for (int c = threadIdx.x; c < cells; c += kP2GThreads)
+    for (int a = 0; a < 4; ++a) tile[a * kTileCells + c] = 0;
+  __syncthreads();
+  if (live) tile_add(tile, lo, e1, e2, q, inv_dx, dx, scale);
+  __syncthreads();
+  tile_flush(tile, lo, e1, e2, cells, threadIdx.x, kP2GThreads, scale, G,
+             grid_v, grid_m);
 }
 
 // K3.  new_v = sum w v;  new_C = 4 inv_dx sum w v (o - fx)^T (unitless
@@ -177,12 +376,14 @@ extern "C" int launch_p2g(const float* x, const float* v, const float* c_eff,
                           const float* mass, const float* sel,
                           const float* stress, const float* vforce, int n,
                           int n_nonvertex, int G, float inv_dx, float dx,
-                          float* grid_v, float* grid_m, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  p2g_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+                          float* grid_v, float* grid_m, int* branch_counts,
+                          void* stream) {
+  constexpr size_t smem = 4 * sizeof(int) * kTileCells;  // < 48 KB
+  const int blocks = (n + kP2GThreads - 1) / kP2GThreads;
+  p2g_kernel<<<blocks, kP2GThreads, smem,
+               static_cast<cudaStream_t>(stream)>>>(
       x, v, c_eff, mass, sel, stress, vforce, n, n_nonvertex, G, inv_dx, dx,
-      grid_v, grid_m);
+      grid_v, grid_m, branch_counts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,10 @@ kernel computes — including its order (surfaces before the bounding box,
 whatever the registration order) and its bounding box without a time
 window.  Scenes with other grid BCs take the unfused path in
 core/stepping.py.
+
+It differentiates as the JAX pipeline does (a custom VJP over
+``_math_full``): on CUDA tensors that need grad the kernel's backward is
+autograd over ``grid_pipeline_plain`` (``_autograd.call``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 from ..core.colliders import (CUT, SLIP, STICKY, BoundingBoxCollider,
                               SurfaceCollider)
 from ..core.types import MPMStaticConfig
-from . import _build
+from . import _autograd, _build
 
 KERNEL = "grid_pipeline"
 _EPS = 1e-15
@@ -57,7 +61,10 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
     mover_v (N,3)|None, mover_w (N,)|None, gravity (3,), damping,
     mesh_friction (None without a mesh), time, dt, surf_params) ->
     grid_v_out (N,3), N = G^3; ``surf_params`` from
-    ``pack_surface_params``."""
+    ``pack_surface_params``.  Under grad, the grid, the mesh and mover
+    fields, gravity, damping, mesh_friction and surf_params are
+    differentiable (JAX differentiates its scalar vector, surfaces
+    included); time and dt are Python floats."""
     if not supported_bcs(grid_post):
         raise ValueError("grid pipeline: unsupported grid BC in grid_post")
     surfaces = tuple(int(col.surface_type) for col in grid_post
@@ -88,11 +95,20 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
         gravity, damping = as_t(gravity).reshape(3), as_t(damping).reshape(())
         mesh_friction = as_t(mesh_friction).reshape(()) if has_mesh else None
         surf = as_t(surf_params) if surfaces else None
-        if not grid_v_in.is_cuda:
-            return grid_pipeline_plain(
-                grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
+        args = (grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
                 gravity, damping, mesh_friction, surf, float(time),
-                float(dt), G, cell_size, surfaces, has_bbox, bbox_pad)
+                float(dt))
+        if not grid_v_in.is_cuda:
+            return plain(*args)
+        return _autograd.call(launch, plain, *args)
+
+    def plain(*args):
+        return grid_pipeline_plain(*args, G, cell_size, surfaces, has_bbox,
+                                   bbox_pad)
+
+    def launch(grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
+               gravity, damping, mesh_friction, surf, time, dt):
+        dev, dtype, n = grid_v_in.device, grid_v_in.dtype, G ** 3
         ins = [None if t is None else _build.check_cuda(name, t)
                for name, t in (("grid_v_in", grid_v_in), ("grid_m", grid_m),
                                ("mesh_acc", mesh_acc), ("mesh_w", mesh_w),
@@ -102,7 +118,7 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
                                ("surf_params", surf))]
         out = torch.empty((n, 3), dtype=dtype, device=dev)
         _build.launch(KERNEL, "launch_grid_pipeline",
-                      *[_build.ptr(t) for t in ins], float(time), float(dt),
+                      *[_build.ptr(t) for t in ins], time, dt,
                       n, G, cell_size, int(has_mesh), int(has_mover),
                       len(surfaces), types, int(has_bbox), bbox_pad,
                       out.data_ptr(), _build.stream(dev))

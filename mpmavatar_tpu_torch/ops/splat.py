@@ -8,9 +8,15 @@ the contract of mpmavatar_tpu/core/stepping.py::rasterize_to_grid: the
 grid is flat
 x-major, the weight comes back as its own channel, and the bounds check is
 the reference's asymmetric ``base >= 0 & base < G - 3`` on every axis (a
-point with base G - 3 is dropped whole).  Forward only, as in the JAX
-package: the splat's inputs (collider mesh, joint velocities) are rollout
-inputs, not trained parameters.
+point with base G - 3 is dropped whole).
+
+Forward only, as in the JAX package, where ``splat_columns_fused`` has no
+VJP: the collider splat's inputs are detached by
+core/stepping.py::mesh_collider_fields (JAX's ``stop_gradient``), and on
+CUDA tensors ``splat`` raises rather than return a field that silently
+drops a gradient.  The mover splat (``stepping.mover_fields``) splats the
+joint particles' own positions, ``state.x``: a differentiated rollout
+with a particle mover has to detach them, or give the mover a backward.
 """
 
 from __future__ import annotations
@@ -35,10 +41,19 @@ def splat(points, values, n_grid: int, inv_dx: float,
     and of w, w the 27-node stencil weight.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    plain version only for CPU tensors.  The kernel has no backward: on
+    CUDA tensors it raises when grad mode is on and the points or values
+    require grad."""
     _check_shapes(points, values)
     if not points.is_cuda:
         return splat_plain(points, values, n_grid, inv_dx, bounds_check)
+    if torch.is_grad_enabled() and (points.requires_grad
+                                    or values.requires_grad):
+        raise RuntimeError(
+            "splat (K4) has no backward, as in the JAX package: its inputs "
+            "require grad.  The particle mover (stepping.mover_fields) "
+            "splats the joint particles' positions state.x; detach them, "
+            "or run the rollout without a mover, to differentiate it")
     pts = _build.check_cuda("points", points)
     vals = _build.check_cuda("values", values)
     n, ch = vals.shape

@@ -13,13 +13,18 @@ unselected elements that keep their d3 and get zero stress and forces.
 tensors and runs ``sand_stress_plain`` on CPU tensors.  Both replace
 ::sand_stress_fused (kernel ``_sand_pallas``, math ``_sand_math`` and
 ``_svd3_planes``) on (T, 3, 3) tensors, without the 22-plane packing.
+
+Both differentiate as their JAX entry points do (custom VJPs that
+re-trace ``_stress_math`` / ``_sand_math``): on CUDA tensors that need
+grad the kernel's backward is autograd over its plain version
+(``_autograd.call``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _autograd, _build
 
 KERNEL = "cloth_stress"
 SAND_KERNEL = "sand_stress"
@@ -33,10 +38,25 @@ def cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa, friction_coeff):
     f1, f2, f3 (E,3)).  ``sel`` is 1.0 where the element is simulated.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    plain version only for CPU tensors.  Under grad, d, r_inv, vol, sel,
+    mu, lam, gamma, kappa and friction_coeff are differentiable, as every
+    row of ``_stress_math``'s input is in JAX; the backward is autograd
+    over ``cloth_stress_plain``.  At a branch point of the return map
+    (R33 = 1, or the friction cone's surface) it takes the gradient of
+    the branch the plain version picks."""
     if not d.is_cuda:
         return cloth_stress_plain(d, r_inv, vol, sel, mu, lam, gamma, kappa,
                                   friction_coeff)
+    new_d, stress, forces = _autograd.call(
+        _launch_cloth_stress, _cloth_stress_twin, d, r_inv, vol, sel, mu,
+        lam, gamma, kappa, friction_coeff)
+    return new_d, stress, forces[:, 0], forces[:, 1], forces[:, 2]
+
+
+def _launch_cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa,
+                         friction_coeff):
+    """K1: (new_d, stress, forces (E, 3, 3) with forces[:, c] the force on
+    corner c)."""
     n = d.shape[0]
     ins = [_build.check_cuda(name, t) for name, t in (
         ("d", d), ("r_inv", r_inv), ("vol", vol), ("sel", sel), ("mu", mu),
@@ -53,7 +73,13 @@ def cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa, friction_coeff):
                       *[t.data_ptr() for t in ins], new_d.data_ptr(),
                       stress.data_ptr(), forces.data_ptr(), n,
                       _build.stream(d.device))
-    return new_d, stress, forces[:, 0], forces[:, 1], forces[:, 2]
+    return new_d, stress, forces
+
+
+def _cloth_stress_twin(*args):
+    """``cloth_stress_plain`` with the kernel's outputs."""
+    new_d, stress, f1, f2, f3 = cloth_stress_plain(*args)
+    return new_d, stress, torch.stack([f1, f2, f3], 1)
 
 
 def cloth_stress_plain(d, r_inv, vol, sel, mu, lam, gamma, kappa,
@@ -160,7 +186,11 @@ def sand_stress(f_trial, f_prev, sel, mu, lam, alpha,
     stress.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    plain version only for CPU tensors.  Under grad, f_trial, f_prev, sel,
+    mu, lam and alpha are differentiable, as every row of ``_sand_math``'s
+    input is in JAX; the backward is autograd over ``sand_stress_plain``.
+    At a branch point of the return map (delta_gamma = 0, tr = 0) it
+    takes the gradient of the branch the plain version picks."""
     n = f_trial.shape[0]
     if f_trial.shape != (n, 3, 3) or f_prev.shape != (n, 3, 3) or any(
             t.shape != (n,) for t in (sel, mu, lam)):
@@ -168,6 +198,13 @@ def sand_stress(f_trial, f_prev, sel, mu, lam, alpha,
     if not f_trial.is_cuda:
         return sand_stress_plain(f_trial, f_prev, sel, mu, lam, alpha,
                                  return_branch)
+    return _autograd.call(_launch_sand, sand_stress_plain, f_trial, f_prev,
+                          sel, mu, lam, alpha, return_branch)
+
+
+def _launch_sand(f_trial, f_prev, sel, mu, lam, alpha, return_branch):
+    """K8 on CUDA tensors: (f_new, stress[, branch])."""
+    n = f_trial.shape[0]
     ins = [_build.check_cuda(name, t) for name, t in (
         ("f_trial", f_trial), ("f_prev", f_prev), ("sel", sel), ("mu", mu),
         ("lam", lam), ("alpha", alpha.reshape(1)))]

@@ -11,13 +11,18 @@ P2G scaling contract: ``stress`` (N, 3, 3) covers the N non-vertex
 particles and ``vforce`` (P - N, 3) the vertices; both arrive multiplied
 by dt (traditional stress also by vol), and the kernel applies mass*sel
 to the momentum and sel to the force terms.
+
+Both differentiate as their JAX entry points do (custom VJPs that
+re-trace ``_p2g_math`` / ``_g2p_math``): on CUDA tensors that need grad
+the kernel's backward is autograd over its plain version
+(``_autograd.call``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _autograd, _build
 
 P2G_KERNEL = "p2g"
 G2P_KERNEL = "g2p"
@@ -96,16 +101,33 @@ def _check_p2g_shapes(x, v, c_eff, mass, sel, stress, vforce):
 
 
 def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
-        dx: float):
+        dx: float, branch_counts=None):
     """APIC particle-to-grid scatter.  Returns (grid_v_in (G^3, 3),
     grid_m (G^3,)); see the module docstring for the scaling contract.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    plain version only for CPU tensors.  Under grad, x, v, c_eff, mass,
+    sel, stress and vforce are differentiable; the backward is autograd
+    over ``p2g_plain``.  ``branch_counts``, an int32 (2,) CUDA tensor,
+    counts the kernel's blocks that accumulated in shared memory and
+    those that added straight into the grid (csrc/transfer.cu)."""
     _check_p2g_shapes(x, v, c_eff, mass, sel, stress, vforce)
     if not x.is_cuda:
         return p2g_plain(x, v, c_eff, mass, sel, stress, vforce, n_grid,
                          inv_dx, dx)
+    if branch_counts is not None and (
+            branch_counts.shape != (2,) or not branch_counts.is_cuda
+            or branch_counts.dtype != torch.int32):
+        raise ValueError("p2g: branch_counts must be an int32 (2,) CUDA "
+                         "tensor")
+    launch = lambda *args: _launch_p2g(*args, branch_counts)
+    return _autograd.call(launch, p2g_plain, x, v, c_eff, mass, sel, stress,
+                          vforce, n_grid, inv_dx, dx)
+
+
+def _launch_p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid, inv_dx, dx,
+                branch_counts):
+    """K2 on CUDA tensors into two zero-filled grids."""
     ins = [_build.check_cuda(name, t) for name, t in (
         ("x", x), ("v", v), ("c_eff", c_eff), ("mass", mass), ("sel", sel),
         ("stress", stress), ("vforce", vforce))]
@@ -117,7 +139,7 @@ def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
         _build.launch(P2G_KERNEL, "launch_p2g", *[t.data_ptr() for t in ins],
                       n, stress.shape[0], n_grid, inv_dx, dx,
                       grid_v.data_ptr(), grid_m.data_ptr(),
-                      _build.stream(x.device))
+                      _build.ptr(branch_counts), _build.stream(x.device))
     return grid_v, grid_m
 
 
@@ -148,11 +170,17 @@ def g2p(x, grid_v, n_grid: int, inv_dx: float):
     """27-stencil gather: (new_v (P,3), new_C (P,3,3), grad_v (P,3,3)).
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors."""
+    plain version only for CPU tensors.  Under grad, x and grid_v are
+    differentiable; the backward is autograd over ``g2p_plain``."""
     if x.shape[1:] != (3,) or grid_v.shape != (n_grid ** 3, 3):
         raise ValueError("g2p: x must be (P, 3) and grid_v (G^3, 3)")
     if not x.is_cuda:
         return g2p_plain(x, grid_v, n_grid, inv_dx)
+    return _autograd.call(_launch_g2p, g2p_plain, x, grid_v, n_grid, inv_dx)
+
+
+def _launch_g2p(x, grid_v, n_grid, inv_dx):
+    """K3 on CUDA tensors."""
     x_c = _build.check_cuda("x", x)
     g_c = _build.check_cuda("grid_v", grid_v)
     n = x.shape[0]

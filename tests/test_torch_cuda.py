@@ -99,6 +99,192 @@ def test_p2g_kernel_wraps_negative_flat_indices(dev):
     assert float(ref[1].reshape(G, G, G)[G - 1].sum()) > 0.0
     for a, b in zip(out, ref):
         assert _rel_err(a, b) < 1e-5
+    # the same wrap through the shared-memory tile: only the particles at
+    # base (-1, -1, -1), whose stencil box fits the tile
+    near = tuple(a[:4] if torch.is_tensor(a) and a.shape[:1] == (n,) else a
+                 for a in args)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = ktr.p2g(*near, branch_counts=counts)
+    ref = ktr.p2g_plain(*near)
+    assert counts.tolist() == [1, 0]
+    assert float(ref[1].reshape(G, G, G)[G - 1].sum()) > 0.0
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-5
+
+
+# P2G's particle orders: the cloth in mesh order (consecutive particles
+# are neighbours, each block's stencil box fits the shared-memory tile),
+# the same particles in a random order and sand spread over a block (the
+# boxes do not fit: the blocks add straight into the grid)
+P2G_ORDERS = ("mesh", "permuted", "sand")
+
+
+def _p2g_inputs(dev, order, G=128):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    if order == "sand":
+        n = 20_000
+        x = 0.6 + 0.8 * torch.rand((n, 3), generator=gen, device=dev)
+        return (x, 0.1 * rnd(n, 3), 0.5 * rnd(n, 3, 3),
+                torch.full((n,), 1e-6, device=dev), torch.ones(n, device=dev),
+                DT * rnd(n, 3, 3), torch.zeros((0, 3), device=dev), G,
+                G / 2.0, 2.0 / G)
+    verts, faces = build_cloth(64, 64)
+    cfg, st, _ = cloth_scene(verts, faces, G, device=dev)
+    x, v, c, mass, sel = (st.x, 0.1 * rnd(cfg.n_particles, 3),
+                          0.5 * rnd(cfg.n_particles, 3, 3), st.mass,
+                          (st.selection == 0).float())
+    if order == "permuted":
+        # stress and vforce stay with the elements and the vertices
+        nnv = cfg.n_no_vertices
+        g_cpu = torch.Generator().manual_seed(5)
+        perm = torch.cat([torch.randperm(nnv, generator=g_cpu),
+                          nnv + torch.randperm(cfg.n_vertices,
+                                               generator=g_cpu)]).to(dev)
+        x, v, c, mass, sel = (a[perm] for a in (x, v, c, mass, sel))
+    return (x, v, c, mass, sel, DT * rnd(cfg.n_no_vertices, 3, 3),
+            DT * rnd(cfg.n_vertices, 3), G, cfg.inv_dx, cfg.dx)
+
+
+@pytest.mark.parametrize("order", P2G_ORDERS)
+def test_p2g_kernel_matches_plain_in_every_particle_order(dev, order):
+    """K2 against its plain version at 128^3, with the blocks counted by
+    branch: the mesh-ordered cloth mostly through the tile (the blocks
+    that span two runs of the mesh do not fit it), the permuted cloth and
+    the sand block straight into the grid."""
+    args = _p2g_inputs(dev, order)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = ktr.p2g(*args, branch_counts=counts)
+    ref = ktr.p2g_plain(*args)
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-5
+    tile, direct = counts.tolist()
+    # a block takes 128 consecutive particles (csrc/transfer.cu)
+    assert tile + direct == -(-args[0].shape[0] // 128)
+    if order == "mesh":
+        assert tile > 3 * direct
+    else:       # the last block's few particles may fit the tile
+        assert tile <= 1 < direct
+
+
+# the five kernels with a backward, at small shapes: (wrapper, plain
+# version, inputs, differentiable input indices)
+GRAD_KERNELS = ("cloth_stress", "sand_stress", "p2g", "g2p", "grid_pipeline")
+
+
+def _grad_case(dev, kernel):
+    cfg, st, model, rnd = _scene(dev)
+    E = cfg.n_elements
+    if kernel == "cloth_stress":
+        sel = (torch.arange(E, device=dev) % 7 != 0).float()
+        return (kstress.cloth_stress, kstress.cloth_stress_plain,
+                [st.d, st.R_inv, st.vol[:E], sel, model.mu[:E],
+                 model.lam[:E], model.gamma[:E], model.kappa[:E],
+                 model.friction_coeff], (0, 1, 2, 4, 5, 6, 7, 8))
+    if kernel == "sand_stress":
+        # without the reflected particle, whose log of a negative singular
+        # value is NaN
+        args = _sand_set(dev)
+        keep = torch.arange(len(args[0]), device=dev) != len(args[0]) // 4
+        return (kstress.sand_stress, kstress.sand_stress_plain,
+                [a[keep] for a in args[:5]] + args[5:], (0, 1, 3, 4, 5))
+    grid = (cfg.n_grid, cfg.inv_dx, cfg.dx)
+    if kernel == "p2g":
+        return (lambda *a: ktr.p2g(*a, *grid),
+                lambda *a: ktr.p2g_plain(*a, *grid),
+                [st.x, st.v, st.C, st.mass, (st.selection == 0).float(),
+                 DT * rnd(cfg.n_no_vertices, 3, 3),
+                 DT * rnd(cfg.n_vertices, 3)], tuple(range(7)))
+    if kernel == "g2p":
+        return (lambda *a: ktr.g2p(*a, cfg.n_grid, cfg.inv_dx),
+                lambda *a: ktr.g2p_plain(*a, cfg.n_grid, cfg.inv_dx),
+                [st.x, rnd(cfg.n_grid ** 3, 3)], (0, 1))
+    f = lambda *v: torch.tensor(v, device=dev)
+    post = (tcol.BoundingBoxCollider(f(0.0), f(1.0)),
+            tcol.SurfaceCollider(f(1.0171, 0.0, 0.0), f(0.6, 0.8, 0.0),
+                                 f(0.4), f(0.0), f(1.0), tcol.FRICTIONAL),
+            tcol.SurfaceCollider(f(0.0, 0.313, 0.0), f(0.0, 1.0, 0.0),
+                                 f(0.0), f(0.0), f(1.0), tcol.STICKY))
+    n = cfg.n_grid ** 3
+    w = lambda: 0.5 + torch.rand((n,), device=dev)
+    run = gp.make_grid_pipeline(cfg, post, True, True)
+    surf = gp.pack_surface_params(post)
+    return (lambda *a: run(*a, 0.5, DT, surf),
+            lambda *a: gp.grid_pipeline_plain(*a, surf, 0.5, DT, cfg.n_grid,
+                                              cfg.dx, (2, 0), True, 3),
+            [rnd(n, 3), w(), rnd(n, 6), w(), rnd(n, 3), w(),
+             f(0.0, -9.8, 0.0), f(0.9), f(0.5)], tuple(range(9)))
+
+
+@pytest.mark.parametrize("kernel", GRAD_KERNELS)
+def test_kernel_gradient_matches_the_plain_version(dev, kernel):
+    """Under grad the wrapper launches its kernel once, its outputs carry
+    a grad_fn, and its gradient equals autograd over the plain version on
+    the same inputs (up to the atomics in the plain version's index
+    backward); without grad the outputs carry none."""
+    wrapper, plain, args, wrt = _grad_case(dev, kernel)
+    leaves = [a.detach().clone().requires_grad_(i in wrt)
+              for i, a in enumerate(args)]
+    before = _build.launch_counts().get(kernel, 0)
+    outs = wrapper(*leaves)
+    outs = [outs] if torch.is_tensor(outs) else list(outs)
+    assert _build.launch_counts()[kernel] == before + 1
+    assert all(o.grad_fn is not None for o in outs)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    cots = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    got = torch.autograd.grad(outs, [leaves[i] for i in wrt], cots,
+                              allow_unused=True)
+    ref_outs = plain(*leaves)
+    ref_outs = [ref_outs] if torch.is_tensor(ref_outs) else list(ref_outs)
+    ref = torch.autograd.grad(ref_outs, [leaves[i] for i in wrt], cots,
+                              allow_unused=True)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert _rel_err(a, b) < 1e-5
+    with torch.no_grad():
+        outs = wrapper(*leaves)
+    outs = [outs] if torch.is_tensor(outs) else list(outs)
+    assert all(o.grad_fn is None for o in outs)
+
+
+def test_substep_gradient_on_the_card_matches_the_cpu(dev):
+    """d(vertex loss after 3 substeps) / d(mu, lam, mass, R_inv) on the
+    card (K1, K2, K5, K3 forward, autograd over their plain versions
+    backward) against the plain path on the CPU, per leaf relative to its
+    largest entry.  The cloth is stretched in its plane, so that mu and
+    lam see a strain well above the positions' rounding, and d3 is scaled
+    to 0.9, so every element sits on the return map's contact branch,
+    away from R33 = 1."""
+    verts, faces = build_cloth(12, 12, y0=1.1, extent=0.5)
+    grads = {}
+    for device in (dev, torch.device("cpu")):
+        cfg, st, model = cloth_scene(verts, faces, 32, device=device)
+        gen = torch.Generator().manual_seed(7)
+        v = 0.05 * torch.randn((cfg.n_particles, 3), generator=gen)
+        weights = torch.randn((cfg.n_vertices, 3), generator=gen)
+        scale = torch.tensor([1.15, 1.0, 0.9], device=device)
+        centre = torch.tensor([1.0, 0.0, 1.0], device=device)
+        x = centre + (st.x - centre) * scale
+        d = st.d * scale[:, None]
+        d[:, :, 2] *= 0.9
+        solver = MPMSolver(cfg, device=device)
+        solver.add_surface_collider([0.0, 0.1, 0.0], [0.0, 1.0, 0.0])
+        leaves = [a.detach().clone().requires_grad_(True)
+                  for a in (model.mu, model.lam, st.mass, st.R_inv)]
+        m = dataclasses.replace(model, mu=leaves[0], lam=leaves[1])
+        s = dataclasses.replace(st, x=x, d=d, v=v.to(device), mass=leaves[2],
+                                R_inv=leaves[3])
+        _build.reset_launch_counts()
+        out, _ = solver.frame(s, m, DT, 3, 0.0)
+        loss = (out.x[cfg.n_elements:] * weights.to(device)).sum()
+        grads[device.type] = torch.autograd.grad(loss, leaves)
+        if device.type == "cuda":
+            assert _build.launch_counts() == {"cloth_stress": 3, "p2g": 3,
+                                              "grid_pipeline": 3, "g2p": 3}
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float(b.abs().max()) > 0
+        assert _rel_err(a.cpu(), b) < 1e-3
 
 
 def _splat_points(dev, n=500, G=32, seed=0):

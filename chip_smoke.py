@@ -5,7 +5,9 @@ its plain PyTorch version.
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; no phase carries on past its own):
-  1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed);
+  1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed), and
+     print K1's, K2's, K3's, K6's and K7's registers, spills, shared
+     memory and blocks per SM as built;
   2. the paths, each through MPMSolver.frame with every launch counter
      reset just before it and read just after, each kernel's launches
      held to its count per substep, and a torch.profiler breakdown of 20
@@ -30,9 +32,10 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      shapes against its plain version on the card; its device time from
      CUDA-graph replays (and, as eager_ms, back-to-back eager calls),
      beside its plain version's time and its memory/compute bound; K2
-     also on the cloth drop's particles in a random order and on path B's
-     state, with its blocks counted by branch (shared-memory tile or
-     straight into the grid); the backward of K1, K2, K5, K3 and K8
+     and K3 also on the cloth drop's particles in a random order and on
+     path B's state, with their blocks counted by branch (shared-memory
+     tile, or straight into or from the grid); the backward of K1, K2,
+     K5, K3 and K8
      (autograd over the plain version) timed at the same shapes;
   5. 10 substeps on the kernel path against 10 on the plain path (CPU)
      from the same perturbed states, for a few seeds:
@@ -238,9 +241,12 @@ def event_ms(fn, reps: int = 5, inner: int = 20, warmup: int = 3) -> float:
 
 
 def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
-    """Device time of one call of ``fn``: the call captured once in a CUDA
-    graph, the graph replayed back to back and timed with CUDA events (so
-    host-side launch overhead between calls is not counted)."""
+    """Device time of one call of ``fn``: ``inner`` calls captured in one
+    CUDA graph, the graph replayed back to back and timed with CUDA events,
+    per call.  Neither the host's launches of the calls nor its launch of
+    each replay is counted: with one call per graph a replay of a
+    1-element fill read 0.0110 ms once the profiler had run in the process
+    (H100 80GB HBM3, 700 W), above a fast kernel's time."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -250,8 +256,9 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return event_ms(graph.replay, reps, inner, warmup=2)
+        for _ in range(inner):
+            fn()
+    return event_ms(graph.replay, reps, 2, warmup=2) / inner
 
 
 def profile_device(fn):
@@ -304,6 +311,40 @@ def bound(n_bytes: float, n_flops: float):
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
+
+
+def graph_floor_ms(dev) -> float:
+    """graph_ms of a 1-element fill: what a call in a graph costs with
+    next to no work."""
+    import torch
+    tiny = torch.zeros(1, device=dev)
+    return graph_ms(tiny.zero_)
+
+
+def k1_inputs(state, model, n_el, gen):
+    """K1's inputs on a cloth state: d perturbed (off the return map's
+    R33 = 1 branch point, where a flat cloth sits) and a tenth of the
+    elements unselected, drawn from ``gen``."""
+    import torch
+    dev = state.x.device
+    d = state.d + 0.02 * torch.randn((n_el, 3, 3), generator=gen, device=dev)
+    d[:, :, 2] *= 0.5 + 1.1 * torch.rand((n_el, 1), generator=gen,
+                                         device=dev)
+    sel_e = (torch.rand((n_el,), generator=gen, device=dev) > 0.1).float()
+    return (d, state.R_inv, state.vol[:n_el], sel_e, model.mu[:n_el],
+            model.lam[:n_el], model.gamma[:n_el], model.kappa[:n_el],
+            model.friction_coeff)
+
+
+def random_order(cfg):
+    """A seeded random order of a cloth's particles: elements among
+    elements, vertices among vertices (CPU int64)."""
+    import torch
+    g_perm = torch.Generator().manual_seed(11)
+    nnv = cfg.n_no_vertices
+    return torch.cat([torch.randperm(nnv, generator=g_perm),
+                      nnv + torch.randperm(cfg.n_vertices,
+                                           generator=g_perm)])
 
 
 def drive(name, solver, state, model, scene, frames, substeps, expect):
@@ -385,6 +426,22 @@ def composite_calls(run):
     with mock.patch.object(rasterizer, "segment_composite_gather", record):
         run()
     return calls
+
+
+def g2p_inputs(run):
+    """(x, grid_v) of the last K3 call that ``run`` makes: the positions
+    and the grid velocities a path hands K3."""
+    from unittest import mock
+    from mpmavatar_tpu_torch.ops import transfer as ktransfer
+    calls, real = [], ktransfer.g2p
+
+    def record(x, grid_v, *args, **kw):
+        calls.append((x, grid_v))
+        return real(x, grid_v, *args, **kw)
+
+    with mock.patch.object(ktransfer, "g2p", record):
+        run()
+    return calls[-1]
 
 
 def live_slots(packed, ids, nc):
@@ -1171,6 +1228,12 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print("  ptxas:", line.strip())
+    for name, v in {**kstress.kernel_info(),
+                    **ktransfer.kernel_info()}.items():
+        print(f"  as built: {name} {v['registers']} registers/thread, "
+              f"{v['spill_bytes']} spilled bytes/thread, "
+              f"{v['shared_bytes']} shared bytes/block, "
+              f"{v['blocks_per_sm']} blocks per SM")
     from mpmavatar_tpu_torch.ops import composite as kcomp
     for chunk, n_c in ((32, 3), (128, 3), (512, 8)):
         print(f"  as built, at C = {chunk}, nc = {n_c}: " + "; ".join(
@@ -1285,12 +1348,12 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
     st = dataclasses.replace(state, v=state.v + 0.05 * rnd(P, 3))
-    d = st.d + 0.02 * rnd(E, 3, 3)
-    d[:, :, 2] *= 0.5 + 1.1 * torch.rand((E, 1), generator=gen, device=dev)
-    sel_e = (torch.rand((E,), generator=gen, device=dev) > 0.1).float()
-    k1_in = (d, st.R_inv, st.vol[:E], sel_e, model.mu[:E], model.lam[:E],
-             model.gamma[:E], model.kappa[:E], model.friction_coeff)
+    k1_in = k1_inputs(st, model, E, gen)
     results = {}
+    # the floor under every graph_ms below: a 1-element fill per call
+    floor_ms = graph_floor_ms(dev)
+    print(f"graph replay floor (a 1-element fill per call): {floor_ms:.4f} "
+          "ms")
 
     # no single PyTorch call computes any of these functions: library_ms
     # stays null
@@ -1324,7 +1387,8 @@ def main() -> int:
                  "launches": launches_of.get(name, 0),
                  "max_abs_err": err_abs, "ms": ms, "eager_ms": eager_ms,
                  "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                 "library_ms": None, **(extra or {})}
+                 "library_ms": None, "graph_floor_ms": floor_ms,
+                 **(extra or {})}
         if name in results:     # a further shape of a kernel already listed
             results[name].setdefault("other_shapes", []).append(
                 dict(entry, label=label))
@@ -1339,7 +1403,8 @@ def main() -> int:
           "mpmavatar_tpu/ops/pallas_stress.py:160",
           lambda: kstress.cloth_stress(*k1_in),
           lambda: kstress.cloth_stress_plain(*k1_in),
-          E * (18 + 27) * 4 + 4, E * 310.0, launches_a)
+          E * (18 + 27) * 4 + 4, E * 310.0, launches_a,
+          extra=kstress.kernel_info()[kstress.KERNEL])
 
     _, stress_e, f1, f2, f3 = k1
     vforce = torch.zeros((cfg.n_vertices, 3), device=dev)
@@ -1380,10 +1445,7 @@ def main() -> int:
     # the same particles in a random order (elements among elements,
     # vertices among vertices, each with its own stress or force)
     nnv = cfg.n_no_vertices
-    g_perm = torch.Generator().manual_seed(11)
-    perm = torch.cat([torch.randperm(nnv, generator=g_perm),
-                      nnv + torch.randperm(cfg.n_vertices,
-                                           generator=g_perm)]).to(dev)
+    perm = random_order(cfg).to(dev)
     p2g_check("p2g (the cloth drop's particles in a random order)",
               (*(a[perm] for a in k2_in[:5]), k2_in[5][perm[:nnv]],
                k2_in[6][perm[nnv:] - nnv], *k2_in[7:]), launches_a)
@@ -1520,20 +1582,38 @@ def main() -> int:
     if e_rel > KERNEL_REL_TOL["grid_pipeline"]:
         raise AssertionError("grid_pipeline (all branches) disagrees")
 
-    k3 = ktransfer.g2p(st.x, k5, GRID, cfg.inv_dx)
-    k3_ref = ktransfer.g2p_plain(st.x, k5, GRID, cfg.inv_dx)
-    base = torch.floor(st.x * cfg.inv_dx - 0.5).long()
-    touched = torch.unique(torch.clamp(
-        ktransfer.flat_indices(base, GRID), 0, n_cells - 1)).numel()
-    # bytes: x in (3 floats), v, C, grad_v out (21) per particle, plus the
-    # grid cells the stencils touch (3 floats each); ~1900 FP32 operations
-    # per particle (27 nodes x ~70)
-    check("g2p", k3, k3_ref, "transfer.cu",
-          "mpmavatar_tpu/ops/pallas_transfer.py:256",
-          lambda: ktransfer.g2p(st.x, k5, GRID, cfg.inv_dx),
-          lambda: ktransfer.g2p_plain(st.x, k5, GRID, cfg.inv_dx),
-          4 * (24 * P + 3 * touched), P * 1900.0, launches_a)
-    print(f"g2p: {touched} grid cells touched by the stencils")
+    def g2p_check(label, x, grid_v, g, inv_dx, launches_of):
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        out = ktransfer.g2p(x, grid_v, g, inv_dx, branch_counts=counts)
+        ref = ktransfer.g2p_plain(x, grid_v, g, inv_dx)
+        tile, direct = counts.tolist()
+        n_p = x.shape[0]
+        base = torch.floor(x * inv_dx - 0.5).long()
+        touched = torch.unique(torch.clamp(
+            ktransfer.flat_indices(base, g), 0, g ** 3 - 1)).numel()
+        # bytes: x in (3 floats), v, C, grad_v out (21) per particle, plus
+        # the grid cells the stencils touch (3 floats each); ~1900 FP32
+        # operations per particle (27 nodes x ~70)
+        check("g2p", out, ref, "transfer.cu",
+              "mpmavatar_tpu/ops/pallas_transfer.py:256",
+              lambda: ktransfer.g2p(x, grid_v, g, inv_dx),
+              lambda: ktransfer.g2p_plain(x, grid_v, g, inv_dx),
+              4 * (24 * n_p + 3 * touched), n_p * 1900.0, launches_of,
+              label=label,
+              extra={"particles": n_p, "grid": g, "touched_cells": touched,
+                     "tile_blocks": tile, "direct_blocks": direct,
+                     **ktransfer.kernel_info()[ktransfer.G2P_KERNEL]})
+        print(f"  {label or 'g2p'}: P={n_p}, {g}^3, {touched} grid cells "
+              f"touched by the stencils; {tile} blocks gathered from the "
+              f"shared-memory tile, {direct} straight from the grid")
+
+    g2p_check(None, st.x, k5, GRID, cfg.inv_dx, launches_a)
+    g2p_check("g2p (the cloth drop's particles in a random order)",
+              st.x[perm], k5, GRID, cfg.inv_dx, launches_a)
+    g2p_check(f"g2p (path B, {GRID_B}^3, one more substep's inputs)",
+              *g2p_inputs(lambda: solver_b.frame(state_b, model_b, DT, 1,
+                                                 t_b, **scene_b)),
+              GRID_B, cfg_b.inv_dx, launches_b)
 
     # K8: path B's sand after its run, and a tip / cone / reflected set
     sl_b = slice(cfg_b.n_elements, cfg_b.n_no_vertices)

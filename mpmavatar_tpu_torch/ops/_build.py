@@ -125,13 +125,16 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "launch_cloth_stress": [_P] * 12 + [_I, _P],
     "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P, _P],
-    "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P],
+    "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _F, _I, _I, _I,
                                          _I, _I, _I, _P, _P],
     "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "cloth_stress_info": [_IP],
+    "p2g_info": [_IP],
+    "g2p_info": [_IP],
     "composite_info": [_I, _I, _IP],
     "composite_bwd_info": [_I, _I, _IP],
 }
@@ -178,6 +181,19 @@ def ptr(t) -> int | None:
 
 def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def kernel_attributes(symbol: str, *args) -> dict:
+    """Registers and spilled bytes per thread, shared bytes per block and
+    resident blocks per SM of a kernel as built, from its C query
+    ``symbol`` (``cudaFuncGetAttributes`` and the occupancy API)."""
+    lib = library()
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, symbol)(*args, out)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: {lib.mpm_error_string(err).decode()}")
+    return {"registers": out[0], "spill_bytes": out[1],
+            "shared_bytes": out[2], "blocks_per_sm": out[3]}
 
 
 def check_cuda(name: str, t, dtype=None):

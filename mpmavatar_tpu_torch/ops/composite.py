@@ -35,8 +35,6 @@ contract each entry gets at most one add onto zero and is deterministic.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -250,17 +248,9 @@ def segment_composite_vjp(pgT, pix0, g, nc: int):
 
 
 def kernel_info(chunk: int, nc: int) -> dict:
-    """K6's and K7's registers per thread, spilled bytes per thread and
-    resident blocks per SM at this chunk and nc, as built (CUDA only)."""
-    lib = _build.library()
-    info = {}
-    for kernel, symbol in ((KERNEL, "composite_info"),
-                           (KERNEL_BWD, "composite_bwd_info")):
-        out = (ctypes.c_int * 3)()
-        err = getattr(lib, symbol)(chunk, nc, out)
-        if err != 0:
-            raise RuntimeError(f"{symbol}: "
-                               f"{lib.mpm_error_string(err).decode()}")
-        info[kernel] = {"registers": out[0], "spill_bytes": out[1],
-                        "blocks_per_sm": out[2]}
-    return info
+    """K6's and K7's registers per thread, spilled bytes per thread, shared
+    bytes per block and resident blocks per SM at this chunk and nc, as
+    built (CUDA only)."""
+    return {KERNEL: _build.kernel_attributes("composite_info", chunk, nc),
+            KERNEL_BWD: _build.kernel_attributes("composite_bwd_info", chunk,
+                                                 nc)}

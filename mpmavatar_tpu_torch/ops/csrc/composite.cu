@@ -39,6 +39,7 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "composite_common.cuh"
 
 using namespace composite;
@@ -101,17 +102,9 @@ extern "C" int launch_composite(const float* packed, const long long* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// registers per thread, local (spilled) bytes per thread and resident
-// blocks per SM at this C and nc, as built
+// registers, spilled bytes, shared bytes and resident blocks per SM at
+// this C and nc, as built
 extern "C" int composite_info(int C, int nc, int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, composite_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, composite_kernel, kPix, gather_bytes(C, 6 + nc));
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = blocks;
-  return static_cast<int>(err);
+  return kernel_attributes(reinterpret_cast<const void*>(composite_kernel),
+                           kPix, gather_bytes(C, 6 + nc), info);
 }

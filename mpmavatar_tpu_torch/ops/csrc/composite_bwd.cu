@@ -70,6 +70,7 @@
 
 #include <cuda_runtime.h>
 
+#include "attributes.cuh"
 #include "composite_common.cuh"
 
 using namespace composite;
@@ -251,20 +252,12 @@ extern "C" int launch_composite_bwd(const float* packed, const long long* ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// registers per thread, local (spilled) bytes per thread and resident
-// blocks per SM at this C and nc, as built
+// registers, spilled bytes, shared bytes and resident blocks per SM at
+// this C and nc, as built
 extern "C" int composite_bwd_info(int C, int nc, int* info) {
   const size_t smem = bwd_smem(C, nc);
-  cudaError_t err = allow_smem(smem);
+  const cudaError_t err = allow_smem(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, composite_bwd_kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, composite_bwd_kernel, kPix, smem);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = blocks;
-  return static_cast<int>(err);
+  return kernel_attributes(
+      reinterpret_cast<const void*>(composite_bwd_kernel), kPix, smem, info);
 }

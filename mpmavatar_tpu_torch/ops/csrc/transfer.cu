@@ -50,11 +50,45 @@
 // saves ~3x of the global atomics, where a block's tile saves more.
 //
 // G2P bound: memory — 12 B of position in, 84 B out per particle, plus the
-// grid cells the stencils touch.  Design: one thread per particle gathering
-// 27 x 3 floats (neighbouring particles share cells, so L1/L2 absorb the
-// re-reads).
+// grid cells the stencils touch (~9.6 MB at P = 99,737: ~2.9 us at 3.35
+// TB/s); its ~1,900 FP32 operations per particle take about as long.  The
+// first design (one thread per particle, 81 scalar gathers of grid_v and
+// 21 scalar stores at 12 B and 36 B strides) ran at 0.0195 ms, 15% of
+// that bound, on an H100 80GB HBM3 at 700 W.
+//
+// Design: the gather twin of K2's tile.  A block of kG2PThreads
+// consecutive particles copies its positions' slab into shared memory
+// (staging.cuh) and reduces its stencil bounding box as K2 does (box_warps,
+// box_of).  Where the box fits a tile of kG2PTileCells cells and lies
+// inside [0, G)^3 — so that no stencil node reaches the clip of flat
+// indices, which would read another cell than its (i, j, k) — the block
+// copies the box's z-runs of grid_v into the tile with asynchronous
+// copies and gathers its 27 nodes from there; any other block (particles
+// in random order, such as the bench's sand, a run across two distant
+// rows of the mesh, a box at the grid's faces) gathers straight from
+// grid_v as the first design did.  Both branches take the nodes in the
+// same order and sum them alike, so they agree bit for bit; no atomics.
+// The 21 outputs per particle are staged through the same shared memory
+// and leave in 16-byte vectors.  The optional branch_counts (int32 [2])
+// counts the blocks of each branch.  Kept by timing (graph replays at the
+// cloth drop's shape, a script not in the repo): 256 threads and at most
+// 80 registers (3 blocks per SM, the 390 blocks one wave) over 128
+// threads at 6 blocks; the loops unrolled (the weights stay in registers
+// where the first design kept them on the stack); cp.async over
+// synchronous loads; a box per block over a box per warp with a tile each
+// (at 128^3 a warp that wraps from one mesh row to the next has a box of
+// ~730 cells, so either a sixth of the warps gather straight from the grid
+// or the tiles take twice the shared memory, and both ran slower).  Not
+// kept: per-warp tiles as a fallback for the blocks whose box does not fit
+// (the cloth drop's two blocks that straddle distant runs of the mesh) —
+// the same particles reordered so that no block straddles ran no faster.
+// The time is the one wave's phases one after the other: the positions
+// in, the box, the tile, the 27 nodes, the outputs out.
 
 #include <cuda_runtime.h>
+
+#include "attributes.cuh"
+#include "staging.cuh"
 
 namespace {
 
@@ -73,15 +107,88 @@ __device__ __forceinline__ void axis_weights(float fx, float w[3],
 
 constexpr int kP2GThreads = 128;     // one particle per thread
 constexpr int kP2GMinBlocks = 8;     // blocks per SM: <= 64 registers
-constexpr int kTileCells = 2048;     // x 4 channels x 4 B = 32 KB
+constexpr int kTileCells = 2048;     // K2: x 4 channels x 4 B = 32 KB
+constexpr int kG2PThreads = 256;     // one particle per thread
+constexpr int kG2PMinBlocks = 3;     // <= 80 registers
+constexpr int kG2PTileCells = 2048;  // K3: x 3 channels x 4 B = 24 KB
 
-// One particle's stencil data and attributes, in registers.
-struct P2GParticle {
+// One particle's quadratic B-spline stencil: base node, fractional
+// position and per-axis weights and derivatives (w[axis][offset]).
+struct Stencil {
   int base[3];
-  float fx[3], w[3][3], dw[3][3];     // w[axis][offset]
+  float fx[3], w[3][3], dw[3][3];
+};
+
+__device__ __forceinline__ void stencil_at(float x0, float x1, float x2,
+                                           float inv_dx, Stencil& q) {
+  const float pos[3] = {x0, x1, x2};
+  for (int a = 0; a < 3; ++a) {
+    // rounded, as the plain versions and JAX round it: contracted into the
+    // floor's and fx's subtractions (an FMA) it moves fx by up to half an
+    // ulp of x / dx (~8e-6 at 250^3, where 1 / dx = 125 makes the product
+    // inexact) and a base at a rounding tie by one cell
+    const float gp = __fmul_rn(pos[a], inv_dx);
+    q.base[a] = static_cast<int>(floorf(gp - 0.5f));
+    q.fx[a] = gp - static_cast<float>(q.base[a]);
+    axis_weights(q.fx[a], q.w[a], q.dw[a]);
+  }
+}
+
+// One particle's stencil and attributes, in registers.
+struct P2GParticle : Stencil {
   float s, ms, vp[3], cm[9], sm[9];   // sm: stress, or vforce in sm[0..2]
   bool vertex;
 };
+
+// The stencil bounding box of a block's live particles.  Every thread
+// calls box_warps (per warp, the min and max base of each axis), then,
+// after a __syncthreads, one thread calls box_of.
+template <int kWarps>
+struct BoxScratch {
+  int lo[3][kWarps], hi[3][kWarps];
+};
+
+struct Box {
+  int lo[3], ext[3];   // corner and extents (capped at 2^20 per axis)
+  long long cells;
+  bool inside;         // within [0, G)^3 on every axis
+};
+
+template <int kWarps>
+__device__ __forceinline__ void box_warps(const int base[3], bool live,
+                                          BoxScratch<kWarps>& s) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int a = 0; a < 3; ++a) {
+    const int lo = __reduce_min_sync(0xffffffffu, live ? base[a]
+                                                       : 0x7fffffff);
+    const int hi = __reduce_max_sync(0xffffffffu, live ? base[a]
+                                                       : -0x7fffffff - 1);
+    if (lane == 0) {
+      s.lo[a][warp] = lo;
+      s.hi[a][warp] = hi;
+    }
+  }
+}
+
+template <int kWarps>
+__device__ __forceinline__ Box box_of(const BoxScratch<kWarps>& s, int G) {
+  Box b;
+  b.cells = 1;
+  b.inside = true;
+  for (int a = 0; a < 3; ++a) {
+    int l = s.lo[a][0], h = s.hi[a][0];
+    for (int w = 1; w < kWarps; ++w) {
+      l = min(l, s.lo[a][w]);
+      h = max(h, s.hi[a][w]);
+    }
+    const long long ext = static_cast<long long>(h) - l + 3;
+    b.cells *= ext;
+    b.lo[a] = l;
+    b.ext[a] = static_cast<int>(min(ext, 1LL << 20));
+    b.inside = b.inside && l >= 0 && l + ext <= G;
+  }
+  return b;
+}
 
 __device__ __forceinline__ void p2g_load(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -89,12 +196,7 @@ __device__ __forceinline__ void p2g_load(
     const float* __restrict__ sel, const float* __restrict__ stress,
     const float* __restrict__ vforce, int p, int n_nonvertex, float inv_dx,
     P2GParticle& q) {
-  for (int a = 0; a < 3; ++a) {
-    const float gp = x[3 * p + a] * inv_dx;
-    q.base[a] = static_cast<int>(floorf(gp - 0.5f));
-    q.fx[a] = gp - static_cast<float>(q.base[a]);
-    axis_weights(q.fx[a], q.w[a], q.dw[a]);
-  }
+  stencil_at(x[3 * p], x[3 * p + 1], x[3 * p + 2], inv_dx, q);
   q.s = sel[p];
   q.ms = mass[p] * q.s;
   for (int a = 0; a < 3; ++a) q.vp[a] = v[3 * p + a];
@@ -245,7 +347,8 @@ __global__ void __launch_bounds__(kP2GThreads, kP2GMinBlocks) p2g_kernel(
     float* __restrict__ grid_m, int* __restrict__ branch_counts) {
   constexpr int kWarps = kP2GThreads / 32;
   extern __shared__ int tile[];                  // 4 x kTileCells
-  __shared__ int s_lo[3][kWarps], s_hi[3][kWarps], s_bound[4][kWarps];
+  __shared__ BoxScratch<kWarps> s_scratch;
+  __shared__ int s_bound[4][kWarps];
   __shared__ int s_box[3], s_ext[3], s_use_tile;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int p = blockIdx.x * kP2GThreads + threadIdx.x;
@@ -259,35 +362,19 @@ __global__ void __launch_bounds__(kP2GThreads, kP2GMinBlocks) p2g_kernel(
   // particles per channel (non-negative floats order as their bits)
   float b[4] = {0.f, 0.f, 0.f, 0.f};
   if (live) p2g_bound(q, inv_dx, dx, b);
-  for (int a = 0; a < 3; ++a) {
-    const int lo = __reduce_min_sync(0xffffffffu, live ? q.base[a]
-                                                       : 0x7fffffff);
-    const int hi = __reduce_max_sync(0xffffffffu, live ? q.base[a]
-                                                       : -0x7fffffff - 1);
-    if (lane == 0) {
-      s_lo[a][warp] = lo;
-      s_hi[a][warp] = hi;
-    }
-  }
+  box_warps(q.base, live, s_scratch);
   for (int a = 0; a < 4; ++a) {
     const int m = __reduce_max_sync(0xffffffffu, __float_as_int(b[a]));
     if (lane == 0) s_bound[a][warp] = m;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    long long cells = 1;
+    const Box box = box_of(s_scratch, G);
     for (int a = 0; a < 3; ++a) {
-      int l = s_lo[a][0], h = s_hi[a][0];
-      for (int w = 1; w < kWarps; ++w) {
-        l = min(l, s_lo[a][w]);
-        h = max(h, s_hi[a][w]);
-      }
-      const long long ext = static_cast<long long>(h) - l + 3;
-      cells *= ext;
-      s_box[a] = l;
-      s_ext[a] = static_cast<int>(min(ext, 1LL << 20));
+      s_box[a] = box.lo[a];
+      s_ext[a] = box.ext[a];
     }
-    s_use_tile = cells <= kTileCells;
+    s_use_tile = box.cells <= kTileCells;
     if (branch_counts != nullptr)
       atomicAdd(branch_counts + (s_use_tile ? 0 : 1), 1);
   }
@@ -318,57 +405,134 @@ __global__ void __launch_bounds__(kP2GThreads, kP2GMinBlocks) p2g_kernel(
              grid_v, grid_m);
 }
 
-// K3.  new_v = sum w v;  new_C = 4 inv_dx sum w v (o - fx)^T (unitless
-// offset);  grad_v = sum v (grad w)^T; stencil indices clipped to
-// [0, G^3 - 1].
-__global__ void g2p_kernel(const float* __restrict__ x,
-                           const float* __restrict__ grid_v, int n, int G,
-                           float inv_dx, float* __restrict__ new_v,
-                           float* __restrict__ new_c,
-                           float* __restrict__ grad_v) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  int base[3];
-  float fx[3], w[3][3], dw[3][3];
+// One stencil node's terms of K3 for particle q: g the node's velocity.
+__device__ __forceinline__ void g2p_node(const Stencil& q, int i, int j,
+                                         int k, const float g[3],
+                                         float inv_dx, float nv[3],
+                                         float nc[9], float gv[9]) {
+  const float wt = q.w[0][i] * q.w[1][j] * q.w[2][k];
+  const float wc = wt * inv_dx * 4.0f;
+  const float dpos[3] = {i - q.fx[0], j - q.fx[1], k - q.fx[2]};
+  const float gw[3] = {q.dw[0][i] * q.w[1][j] * q.w[2][k] * inv_dx,
+                       q.w[0][i] * q.dw[1][j] * q.w[2][k] * inv_dx,
+                       q.w[0][i] * q.w[1][j] * q.dw[2][k] * inv_dx};
   for (int a = 0; a < 3; ++a) {
-    const float gp = x[3 * p + a] * inv_dx;
-    base[a] = static_cast<int>(floorf(gp - 0.5f));
-    fx[a] = gp - static_cast<float>(base[a]);
-    axis_weights(fx[a], w[a], dw[a]);
-  }
-  const long long last = static_cast<long long>(G) * G * G - 1;
-  float nv[3] = {0.f, 0.f, 0.f}, nc[9] = {0.f}, gv[9] = {0.f};
-  for (int i = 0; i < 3; ++i) {
-    for (int j = 0; j < 3; ++j) {
-      for (int k = 0; k < 3; ++k) {
-        long long flat =
-            (static_cast<long long>(base[0] + i) * G + (base[1] + j)) * G
-            + (base[2] + k);
-        flat = flat < 0 ? 0 : (flat > last ? last : flat);
-        const float g[3] = {grid_v[3 * flat], grid_v[3 * flat + 1],
-                            grid_v[3 * flat + 2]};
-        const float wt = w[0][i] * w[1][j] * w[2][k];
-        const float wc = wt * inv_dx * 4.0f;
-        const float dpos[3] = {i - fx[0], j - fx[1], k - fx[2]};
-        const float gw[3] = {dw[0][i] * w[1][j] * w[2][k] * inv_dx,
-                             w[0][i] * dw[1][j] * w[2][k] * inv_dx,
-                             w[0][i] * w[1][j] * dw[2][k] * inv_dx};
-        for (int a = 0; a < 3; ++a) {
-          nv[a] += wt * g[a];
-          for (int b = 0; b < 3; ++b) {
-            nc[3 * a + b] += wc * g[a] * dpos[b];
-            gv[3 * a + b] += g[a] * gw[b];
-          }
-        }
-      }
+    nv[a] += wt * g[a];
+    for (int b = 0; b < 3; ++b) {
+      nc[3 * a + b] += wc * g[a] * dpos[b];
+      gv[3 * a + b] += g[a] * gw[b];
     }
   }
-  for (int a = 0; a < 3; ++a) new_v[3 * p + a] = nv[a];
-  for (int k = 0; k < 9; ++k) {
-    new_c[9 * p + k] = nc[k];
-    grad_v[9 * p + k] = gv[k];
-  }
 }
+
+// K3.  new_v = sum w v;  new_C = 4 inv_dx sum w v (o - fx)^T (unitless
+// offset);  grad_v = sum v (grad w)^T; stencil indices clipped to
+// [0, G^3 - 1].  Per block: positions in, the box test, the gathers (from
+// the block's shared-memory tile of grid_v, or straight from grid_v), the
+// outputs staged out; the node order and sums are the same in both
+// branches, so they agree bit for bit.
+__global__ void __launch_bounds__(kG2PThreads, kG2PMinBlocks) g2p_kernel(
+    const float* __restrict__ x, const float* __restrict__ grid_v, int n,
+    int G, float inv_dx, float* __restrict__ new_v,
+    float* __restrict__ new_c, float* __restrict__ grad_v,
+    int* __restrict__ branch_counts) {
+  constexpr int kWarps = kG2PThreads / 32;
+  // in turn: the positions' slab, the tile (3 x kG2PTileCells, cell-major
+  // as grid_v), the outputs' slabs (new_v, new_C, grad_v)
+  extern __shared__ __align__(16) float smem[];
+  __shared__ BoxScratch<kWarps> s_scratch;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kG2PThreads;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(kG2PThreads), n - p0));
+  const int t = threadIdx.x;
+  const bool live = t < rows;
+  staging::load_async<kG2PThreads>(smem, x + 3 * p0, 3 * rows);
+  staging::wait_copies();
+  __syncthreads();
+  Stencil q;
+  if (live)
+    stencil_at(smem[3 * t], smem[3 * t + 1], smem[3 * t + 2], inv_dx, q);
+  box_warps(q.base, live, s_scratch);
+  __syncthreads();
+  // every thread reduces the warps' boxes (broadcast reads): no serial
+  // section, no further barrier.  The tile holds the box's cells by their
+  // (i, j, k); the clip of flat indices leaves those of a box inside the
+  // grid as they are
+  const Box box = box_of(s_scratch, G);
+  const bool use_tile = box.inside && box.cells <= kG2PTileCells;
+  if (t == 0 && branch_counts != nullptr)
+    atomicAdd(branch_counts + (use_tile ? 0 : 1), 1);
+
+  float nv[3] = {0.f, 0.f, 0.f}, nc[9] = {0.f}, gv[9] = {0.f};
+  if (use_tile) {
+    // each warp copies whole z-runs of the box (3 e2 contiguous floats of
+    // grid_v per (i, j)), its lanes on consecutive floats
+    const int e1 = box.ext[1], e2 = box.ext[2], run = 3 * e2;
+    const int warp = t >> 5, lane = t & 31;
+    for (int r = warp; r < box.ext[0] * e1; r += kWarps) {
+      const int li = r / e1, lj = r - li * e1;
+      const float* src = grid_v + 3 * ((static_cast<long long>(
+          box.lo[0] + li) * G + box.lo[1] + lj) * G + box.lo[2]);
+      for (int f = lane; f < run; f += 32)
+        staging::copy4(smem + r * run + f, src + f);
+    }
+    staging::wait_copies();
+    __syncthreads();
+    if (live) {
+      const int o0 = q.base[0] - box.lo[0], o1 = q.base[1] - box.lo[1],
+                o2 = q.base[2] - box.lo[2];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const float* c = smem + 3 * (((o0 + i) * e1 + o1 + j) * e2
+                                         + o2 + k);
+            const float g[3] = {c[0], c[1], c[2]};
+            g2p_node(q, i, j, k, g, inv_dx, nv, nc, gv);
+          }
+    }
+  } else if (live) {
+    const long long last = static_cast<long long>(G) * G * G - 1;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          long long flat = (static_cast<long long>(q.base[0] + i) * G
+                            + (q.base[1] + j)) * G + (q.base[2] + k);
+          flat = flat < 0 ? 0 : (flat > last ? last : flat);
+          const float g[3] = {__ldg(grid_v + 3 * flat),
+                              __ldg(grid_v + 3 * flat + 1),
+                              __ldg(grid_v + 3 * flat + 2)};
+          g2p_node(q, i, j, k, g, inv_dx, nv, nc, gv);
+        }
+  }
+  __syncthreads();                       // the tile is read: stage outputs
+  float* s_v = smem;
+  float* s_c = smem + 3 * kG2PThreads;
+  float* s_g = smem + 12 * kG2PThreads;
+  if (live) {
+    for (int a = 0; a < 3; ++a) s_v[3 * t + a] = nv[a];
+    for (int k = 0; k < 9; ++k) {
+      s_c[9 * t + k] = nc[k];
+      s_g[9 * t + k] = gv[k];
+    }
+  }
+  __syncthreads();
+  staging::store<kG2PThreads>(new_v + 3 * p0, s_v, 3 * rows);
+  staging::store<kG2PThreads>(new_c + 9 * p0, s_c, 9 * rows);
+  staging::store<kG2PThreads>(grad_v + 9 * p0, s_g, 9 * rows);
+}
+
+// the shared memory K3 asks for at launch: the tile, which outsizes the
+// positions' and the outputs' slabs
+constexpr size_t kG2PSmem = 3 * sizeof(float) * kG2PTileCells;
+static_assert(kG2PSmem >= 21 * sizeof(float) * kG2PThreads,
+              "the outputs' slabs must fit the tile's shared memory");
+constexpr size_t kP2GSmem = 4 * sizeof(int) * kTileCells;   // < 48 KB
 
 }  // namespace
 
@@ -378,9 +542,8 @@ extern "C" int launch_p2g(const float* x, const float* v, const float* c_eff,
                           int n_nonvertex, int G, float inv_dx, float dx,
                           float* grid_v, float* grid_m, int* branch_counts,
                           void* stream) {
-  constexpr size_t smem = 4 * sizeof(int) * kTileCells;  // < 48 KB
   const int blocks = (n + kP2GThreads - 1) / kP2GThreads;
-  p2g_kernel<<<blocks, kP2GThreads, smem,
+  p2g_kernel<<<blocks, kP2GThreads, kP2GSmem,
                static_cast<cudaStream_t>(stream)>>>(
       x, v, c_eff, mass, sel, stress, vforce, n, n_nonvertex, G, inv_dx, dx,
       grid_v, grid_m, branch_counts);
@@ -389,10 +552,20 @@ extern "C" int launch_p2g(const float* x, const float* v, const float* c_eff,
 
 extern "C" int launch_g2p(const float* x, const float* grid_v, int n, int G,
                           float inv_dx, float* new_v, float* new_c,
-                          float* grad_v, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  g2p_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, grid_v, n, G, inv_dx, new_v, new_c, grad_v);
+                          float* grad_v, int* branch_counts, void* stream) {
+  const int blocks = (n + kG2PThreads - 1) / kG2PThreads;
+  g2p_kernel<<<blocks, kG2PThreads, kG2PSmem,
+               static_cast<cudaStream_t>(stream)>>>(
+      x, grid_v, n, G, inv_dx, new_v, new_c, grad_v, branch_counts);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int p2g_info(int* info) {
+  return kernel_attributes(reinterpret_cast<const void*>(p2g_kernel),
+                           kP2GThreads, kP2GSmem, info);
+}
+
+extern "C" int g2p_info(int* info) {
+  return kernel_attributes(reinterpret_cast<const void*>(g2p_kernel),
+                           kG2PThreads, kG2PSmem, info);
 }

@@ -76,6 +76,12 @@ def _launch_cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa,
     return new_d, stress, forces
 
 
+def kernel_info() -> dict:
+    """K1's registers, spills, shared memory and blocks per SM as built
+    (CUDA only)."""
+    return {KERNEL: _build.kernel_attributes("cloth_stress_info")}
+
+
 def _cloth_stress_twin(*args):
     """``cloth_stress_plain`` with the kernel's outputs."""
     new_d, stress, f1, f2, f3 = cloth_stress_plain(*args)

@@ -100,6 +100,14 @@ def _check_p2g_shapes(x, v, c_eff, mass, sel, stress, vforce):
         raise ValueError("p2g: inconsistent particle shapes")
 
 
+def _check_branch_counts(kernel: str, branch_counts) -> None:
+    if branch_counts is not None and (
+            branch_counts.shape != (2,) or not branch_counts.is_cuda
+            or branch_counts.dtype != torch.int32):
+        raise ValueError(f"{kernel}: branch_counts must be an int32 (2,) "
+                         "CUDA tensor")
+
+
 def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
         dx: float, branch_counts=None):
     """APIC particle-to-grid scatter.  Returns (grid_v_in (G^3, 3),
@@ -115,11 +123,7 @@ def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
     if not x.is_cuda:
         return p2g_plain(x, v, c_eff, mass, sel, stress, vforce, n_grid,
                          inv_dx, dx)
-    if branch_counts is not None and (
-            branch_counts.shape != (2,) or not branch_counts.is_cuda
-            or branch_counts.dtype != torch.int32):
-        raise ValueError("p2g: branch_counts must be an int32 (2,) CUDA "
-                         "tensor")
+    _check_branch_counts("p2g", branch_counts)
     launch = lambda *args: _launch_p2g(*args, branch_counts)
     return _autograd.call(launch, p2g_plain, x, v, c_eff, mass, sel, stress,
                           vforce, n_grid, inv_dx, dx)
@@ -166,20 +170,25 @@ def p2g_plain(x, v, c_eff, mass, sel, stress, vforce, n_grid: int,
     return grid[:, :3].contiguous(), grid[:, 3].contiguous()
 
 
-def g2p(x, grid_v, n_grid: int, inv_dx: float):
+def g2p(x, grid_v, n_grid: int, inv_dx: float, branch_counts=None):
     """27-stencil gather: (new_v (P,3), new_C (P,3,3), grad_v (P,3,3)).
 
     On CUDA tensors this launches the kernel (or raises); it runs the
     plain version only for CPU tensors.  Under grad, x and grid_v are
-    differentiable; the backward is autograd over ``g2p_plain``."""
+    differentiable; the backward is autograd over ``g2p_plain``.
+    ``branch_counts``, an int32 (2,) CUDA tensor, counts the kernel's
+    blocks that gathered from a shared-memory tile of their stencils' box
+    and those that gathered straight from the grid (csrc/transfer.cu)."""
     if x.shape[1:] != (3,) or grid_v.shape != (n_grid ** 3, 3):
         raise ValueError("g2p: x must be (P, 3) and grid_v (G^3, 3)")
     if not x.is_cuda:
         return g2p_plain(x, grid_v, n_grid, inv_dx)
-    return _autograd.call(_launch_g2p, g2p_plain, x, grid_v, n_grid, inv_dx)
+    _check_branch_counts("g2p", branch_counts)
+    launch = lambda *args: _launch_g2p(*args, branch_counts)
+    return _autograd.call(launch, g2p_plain, x, grid_v, n_grid, inv_dx)
 
 
-def _launch_g2p(x, grid_v, n_grid, inv_dx):
+def _launch_g2p(x, grid_v, n_grid, inv_dx, branch_counts):
     """K3 on CUDA tensors."""
     x_c = _build.check_cuda("x", x)
     g_c = _build.check_cuda("grid_v", grid_v)
@@ -191,8 +200,15 @@ def _launch_g2p(x, grid_v, n_grid, inv_dx):
         _build.launch(G2P_KERNEL, "launch_g2p", x_c.data_ptr(),
                       g_c.data_ptr(), n, n_grid, inv_dx, new_v.data_ptr(),
                       new_c.data_ptr(), grad_v.data_ptr(),
-                      _build.stream(x.device))
+                      _build.ptr(branch_counts), _build.stream(x.device))
     return new_v, new_c, grad_v
+
+
+def kernel_info() -> dict:
+    """K2's and K3's registers, spills, shared memory and blocks per SM as
+    built (CUDA only)."""
+    return {P2G_KERNEL: _build.kernel_attributes("p2g_info"),
+            G2P_KERNEL: _build.kernel_attributes("g2p_info")}
 
 
 def g2p_plain(x, grid_v, n_grid: int, inv_dx: float):

@@ -73,6 +73,71 @@ def test_cloth_stress_kernel_matches_plain(dev):
         assert _rel_err(a, b) < 1e-4
 
 
+def _stress_branch_inputs(dev, n, seed=0):
+    """K1 inputs of ``n`` elements on the return map's branches, one
+    quarter each by index mod 4: separated (R33 > 1), slipping (R33 < 1,
+    the tangential part outside the friction cone), sticking (inside it),
+    unselected; each well away from the branch points (R33 = 1, the
+    cone's surface)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    uni = lambda lo, hi: lo + (hi - lo) * torch.rand((n,), generator=gen,
+                                                     device=dev)
+    d1 = torch.tensor([0.02, 0.0, 0.0], device=dev) + 0.004 * rnd(n, 3)
+    d2 = torch.tensor([0.0, 0.0, 0.02], device=dev) + 0.004 * rnd(n, 3)
+    q1 = d1 / d1.norm(dim=1, keepdim=True)
+    u2 = d2 - (q1 * d2).sum(1, keepdim=True) * q1
+    q2 = u2 / u2.norm(dim=1, keepdim=True)
+    q3 = torch.cross(q1, q2, dim=1)
+    kind = torch.arange(n, device=dev) % 4
+    r33 = torch.where(kind == 0, uni(1.05, 1.5), uni(0.5, 0.8))
+    # fn = kappa (1 - R33)^2 >= 20 on contact; |(R13, R23)| of 0.3 gives
+    # gamma |.| ~ 200 > mu_f fn, of 1e-3 gives ~0.7 < mu_f fn
+    tang = torch.where(kind == 1, 0.3, torch.where(kind == 2, 1e-3, 0.1))
+    r13, r23 = tang * torch.sign(rnd(n)), tang * torch.sign(rnd(n))
+    d3 = r13[:, None] * q1 + r23[:, None] * q2 + r33[:, None] * q3
+    d = torch.stack([d1, d2, d3], dim=2)                   # columns
+    model = make_model(n, device=dev)
+    r_inv = torch.stack([uni(40.0, 60.0), 5.0 * rnd(n), uni(40.0, 60.0)], 1)
+    sel = (kind != 3).float()
+    return (d, r_inv, uni(1e-7, 2e-7), sel, model.mu, model.lam,
+            model.gamma, model.kappa, model.friction_coeff)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 66_248])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cloth_stress_kernel_on_every_branch_and_block_edge(dev, n,
+                                                            aligned):
+    """K1 against its plain version at E = 1, one short of and one past a
+    block of 128 and at the full cloth's E, on every return-map branch;
+    unaligned: every per-element input a view one element past the start
+    of its storage, so no slab starts on a 16-byte boundary."""
+    args = _stress_branch_inputs(dev, n)
+    if not aligned:
+        args = tuple(torch.cat([a[:1], a])[1:] if a.dim() and len(a) == n
+                     else a for a in args)
+        assert args[0].data_ptr() % 16 != 0 and args[0].is_contiguous()
+    ref = kstress.cloth_stress_plain(*args)
+    new_d, stress = ref[0], ref[1]
+    # each branch is where it was built to be: d3 mapped on the separated
+    # and slipping elements, kept on the sticking and unselected ones
+    moved = (new_d[:, :, 2] - args[0][:, :, 2]).abs().amax(1) > 1e-6
+    kind = torch.arange(n, device=dev) % 4
+    assert torch.equal(moved, kind < 2)
+    assert float(stress[kind == 3].abs().max() if n > 3 else 0.0) == 0.0
+    before = _build.launch_counts().get(kstress.KERNEL, 0)
+    out = kstress.cloth_stress(*args)
+    assert _build.launch_counts()[kstress.KERNEL] == before + 1
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-4
+
+
+def test_cloth_stress_kernel_info(dev):
+    info = kstress.kernel_info()[kstress.KERNEL]
+    assert info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= 4 and info["shared_bytes"] > 0
+
+
 def test_p2g_kernel_matches_plain(dev):
     cfg, st, model, rnd = _scene(dev)
     nnv = cfg.n_no_vertices
@@ -350,6 +415,106 @@ def test_g2p_kernel_matches_plain(dev):
     ref = ktr.g2p_plain(st.x, grid_v, cfg.n_grid, cfg.inv_dx)
     for a, b in zip(out, ref):
         assert _rel_err(a, b) < 1e-5
+
+
+# K3's particle orders: the cloth in mesh order (each block's stencil box
+# fits the shared-memory tile), the same particles permuted, the cloth
+# followed by randomly ordered sand (path B's shape), and blocks at both
+# ends of the flat-index clip beside one inside the grid
+G2P_ORDERS = ("mesh", "permuted", "cloth_and_sand", "clip_ends")
+G2P_BLOCK = 256              # particles per block of K3 (csrc/transfer.cu)
+
+
+def _g2p_positions(dev, order, G=128):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    dx = 2.0 / G
+    if order == "clip_ends":
+        # base -1 on every axis (flat indices below 0), base G - 2 (past
+        # G^3 - 1) and a block well inside
+        block = (G2P_BLOCK, 3)
+        low = 0.45 * dx * torch.rand(block, generator=gen, device=dev)
+        high = 2.0 - 0.5 * dx - 0.9 * dx * torch.rand(block, generator=gen,
+                                                      device=dev)
+        mid = 1.0 + 0.5 * dx * torch.rand(block, generator=gen, device=dev)
+        return torch.cat([low, high, mid])
+    verts, faces = build_cloth(64, 64)
+    cfg, st, _ = cloth_scene(verts, faces, G, device=dev)
+    x = st.x
+    if order == "permuted":
+        x = x[torch.randperm(len(x), generator=gen, device=dev)]
+    if order == "cloth_and_sand":
+        x = torch.cat([x, 0.6 + 0.8 * torch.rand((20_000, 3), generator=gen,
+                                                  device=dev)])
+    return x.contiguous()
+
+
+def _g2p_branches(x, G, threads=G2P_BLOCK, tile_cells=2048):
+    """[tile, direct] blocks by K3's rule: a block gathers from its tile
+    where its stencil box has at most tile_cells cells and lies inside
+    [0, G)^3 (csrc/transfer.cu)."""
+    base = torch.floor(x * (G / 2.0) - 0.5).long()
+    pad = -len(base) % threads
+    base = torch.cat([base, base[-1:].expand(pad, 3)])
+    blocks = base.reshape(-1, threads, 3)
+    lo, hi = blocks.amin(1), blocks.amax(1)
+    ext = hi - lo + 3
+    tile = (ext.prod(1) <= tile_cells) & (lo >= 0).all(1) \
+        & (lo + ext <= G).all(1)
+    return [int(tile.sum()), int((~tile).sum())]
+
+
+@pytest.mark.parametrize("order", G2P_ORDERS)
+def test_g2p_kernel_matches_plain_in_every_particle_order(dev, order):
+    """K3 against its plain version at 128^3, its blocks counted by
+    branch: the mesh-ordered cloth through the tile, the permuted cloth
+    and the sand straight from the grid, and the blocks whose stencils
+    reach a clipped flat index straight from the grid too."""
+    G = 128
+    x = _g2p_positions(dev, order, G)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grid_v = torch.randn((G ** 3, 3), generator=gen, device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    out = ktr.g2p(x, grid_v, G, G / 2.0, branch_counts=counts)
+    ref = ktr.g2p_plain(x, grid_v, G, G / 2.0)
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) < 1e-5
+    tile, direct = counts.tolist()
+    assert [tile, direct] == _g2p_branches(x, G)
+    n_blocks = -(-len(x) // G2P_BLOCK)
+    if order == "mesh":
+        # only the blocks that span two distant runs of the mesh: from the
+        # faces' first triangles to their second ones, and from the
+        # elements to the vertices
+        assert direct <= 2 and tile == n_blocks - direct
+    elif order == "permuted":
+        assert tile == 0
+    elif order == "cloth_and_sand":
+        assert direct >= 20_000 // G2P_BLOCK and tile >= 40
+    else:
+        assert [tile, direct] == [1, 2]
+
+
+def test_g2p_kernel_info(dev):
+    info = ktr.kernel_info()
+    assert info[ktr.G2P_KERNEL]["spill_bytes"] == 0
+    # one wave: the full cloth's 390 blocks on the card's 132 SMs
+    assert info[ktr.G2P_KERNEL]["blocks_per_sm"] >= 3
+    assert info[ktr.P2G_KERNEL]["blocks_per_sm"] >= 4
+
+
+@pytest.mark.parametrize("case", ["single_particle_ballistic",
+                                  "uniform_translation"])
+def test_analytic_fixtures_through_the_kernels(dev, case):
+    """tests/test_torch_analytic.py's closed-form cases on the card: K2,
+    K5 and K3 every substep, and K1 for the translating cloth."""
+    import test_torch_analytic
+    _build.reset_launch_counts()
+    getattr(test_torch_analytic, case)(dev)
+    counts = _build.launch_counts()
+    n = counts["g2p"]
+    assert n > 0 and counts["p2g"] == counts["grid_pipeline"] == n
+    assert counts.get("cloth_stress", 0) == (
+        n if case == "uniform_translation" else 0)
 
 
 @pytest.mark.parametrize("mesh_mover", [False, True])

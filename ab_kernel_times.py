@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K1 (cloth stress) and K3 (G2P) of one tree of the port by CUDA-graph
-replay, to compare two trees on one card.
+"""Time K1 (cloth stress), K3 (G2P) and K8 (sand stress) of one tree of the
+port by CUDA-graph replay, to compare two trees on one card.
 
     python3 ab_kernel_times.py [TREE]
 
@@ -8,27 +8,119 @@ TREE (default: this script's directory) is a checkout whose
 ``mpmavatar_tpu_torch`` is built and timed.  The shapes, the seeded inputs
 and the timing (``graph_ms``) are this script's and this directory's
 ``chip_smoke.py``'s, whatever the tree, and the script calls no API that
-the tree before K1's and K3's redesign lacks.  So a parent unpacked with
-``git archive`` under the git-ignored ``scratch/`` and the working tree
-can be timed in turns in one call:
+the tree before K1's, K3's and K8's redesigns lacks.  So a parent unpacked
+with ``git archive`` under the git-ignored ``scratch/`` and the working
+tree can be timed in turns in one call:
 
     for t in scratch/parent . . scratch/parent; do
         python3 ab_kernel_times.py $t || exit 1; done
 
 K1 at the cloth drop's shape; K3 at the cloth drop's particle order, a
 random permutation of it and path B's initial state, on seeded grid
-velocities.  It holds no kernel against its plain version
-(``chip_smoke.py`` does that) and prints one JSON line: the times in ms,
-the tree and the card's name and power limit.
+velocities; K8 on ``chip_smoke.sand_set`` at path B's 100,000 particles
+(tip / cone / reflected, four fifths selected), on the same set with
+every particle selected (path B's case), and on path B's sand after
+chip_smoke's 2 x 100 substeps (run by the tree's own kernels; the mean
+and largest |F_trial - I| of that sand are printed).  Where
+the toolkit's ``cuobjdump`` is found, it also counts the SASS
+instructions a thread of K8 issues per particle and the issue floor they
+set at path B's 100,000 particles (``sand_sass``).  It holds no kernel
+against its plain version (``chip_smoke.py`` does that) and prints one
+JSON line: the times in ms, K8's SASS counts, the tree and the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
 import chip_smoke as cs
+
+# one instruction of cuobjdump's listing, "/*1e00*/  @!P0 FFMA R1, ...":
+# its address and opcode; a branch's target address
+SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+SASS_TARGET = re.compile(r"BRA\s+(?:`\(\.L_x_\d+\)|0x([0-9a-f]+))")
+
+
+def cuobjdump() -> str | None:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "cuobjdump"
+    return str(cand) if cand.exists() else None
+
+
+def sass_issue_count(listing: str, trips: int) -> dict:
+    """Instructions a thread issues through one function of a cuobjdump
+    ``-sass`` listing, NOPs left out.  ``arithmetic``: those between the
+    block's last two ``BAR.SYNC`` (K8: after the staged rows arrive and
+    before the slabs go out; one particle's SVD, return map and stress,
+    and an unselected particle's copy), the loop of its largest backward
+    branch (K8's Jacobi sweeps, where they are not unrolled; ``loop_body``)
+    counted ``trips`` times; ``staging``: the rest up to the last
+    ``EXIT``, counted once (an upper bound: a thread runs the aligned or
+    the scalar copies, and each copy loop two or three times).  The code
+    after the last EXIT (the IEEE division's and square root's slow
+    paths, called only for operands out of their fast range) is not
+    counted."""
+    insts = [(int(m.group(1), 16), m.group(2), line)
+             for line in listing.splitlines()
+             if (m := SASS_LINE.search(line))]
+    exits = [i for i, (_, op, _) in enumerate(insts) if op == "EXIT"]
+    insts = insts[:exits[-1] + 1] if exits else insts
+    bars = [i for i, (_, op, _) in enumerate(insts)
+            if op.startswith("BAR.SYNC")]
+    lo, hi = (bars[-2], bars[-1]) if len(bars) >= 2 else (0, len(insts))
+    index = {addr: i for i, (addr, _, _) in enumerate(insts)}
+    live = [op != "NOP" for _, op, _ in insts]
+    loop_body = 0
+    for i in range(lo, hi):
+        _, op, line = insts[i]
+        m = SASS_TARGET.search(line) if op == "BRA" else None
+        target = index.get(int(m.group(1), 16)) if m and m.group(1) else None
+        if target is not None and lo <= target < i:
+            loop_body = max(loop_body, sum(live[target:i + 1]))
+    region = sum(live[lo:hi])
+    return {"arithmetic": region + (trips - 1) * loop_body,
+            "loop_body": loop_body,
+            "staging": sum(live) - region}
+
+
+def sand_sass(lib: Path, tag: str, n_particles: int) -> dict | None:
+    """K8's SASS instruction counts (``sass_issue_count``) in the built
+    library ``lib``, and the issue floor they set on ``n_particles``: one
+    warp instruction per clock on each of an SM's 4 schedulers, at the
+    card's highest SM clock.  The listing goes to sand_kernel-``tag``.sass
+    in ``chip_smoke.OUT``."""
+    import torch
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    listing = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, check=True).stdout
+    found = [part for part in listing.split("Function : ")
+             if "sand_kernel" in part.split("\n", 1)[0]]
+    if not found:
+        return None
+    (cs.OUT / f"sand_kernel-{tag}.sass").write_text(found[0])
+    counts = sass_issue_count(found[0], trips=8)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = -(-n_particles // 32)
+    floor_s = warps * counts["arithmetic"] / (sms * 4 * mhz * 1e6)
+    return {**counts, "sms": sms, "max_sm_mhz": mhz,
+            "issue_floor_ms": 1e3 * floor_s}
 
 
 def main() -> int:
@@ -52,8 +144,8 @@ def main() -> int:
     times = {"graph_floor": cs.graph_floor_ms(dev),
              "cloth_stress": cs.graph_ms(
                  lambda: kstress.cloth_stress(*k1_in))}
-    solver_b, state_b = bench_scene.build(cs.GRID_B, cs.SAND_B,
-                                          device=dev)[:2]
+    solver_b, state_b, model_b, scene_b = bench_scene.build(
+        cs.GRID_B, cs.SAND_B, device=dev)
     perm = cs.random_order(solver.cfg).to(dev)
     for label, x, cfg in (
             ("g2p", state.x, solver.cfg),
@@ -63,7 +155,31 @@ def main() -> int:
         grid_v = torch.randn((g ** 3, 3), generator=gen, device=dev)
         times[label] = cs.graph_ms(
             lambda: ktransfer.g2p(x, grid_v, g, cfg.inv_dx))
-    print(json.dumps({"tree": str(tree), "ms": times,
+    sets = {label: cs.sand_set(cs.SAND_B, dev, all_selected=every)
+            for label, every in (
+                ("sand_stress (tip / cone / reflected set)", False),
+                ("sand_stress (every particle selected)", True))}
+    # path B's sand after chip_smoke's 2 x 100 substeps, run by the tree's
+    # own kernels
+    t_b = 0.0
+    for _ in range(cs.FRAMES):
+        state_b, t_b = solver_b.frame(state_b, model_b, cs.DT, cs.SUBSTEPS,
+                                      t_b, **scene_b)
+    sl = slice(solver_b.cfg.n_elements, solver_b.cfg.n_no_vertices)
+    sets["sand_stress (path B's sand after its run)"] = (
+        state_b.F_trial, state_b.F, (state_b.selection[sl] == 0).float(),
+        model_b.mu[sl], model_b.lam[sl], model_b.alpha)
+    # free-falling sand keeps F = I but for rounding, which K8's F_new
+    # (u v^T on the tip branch) feeds back every substep
+    drift = (state_b.F_trial - torch.eye(3, device=dev)).abs()
+    for label, args in sets.items():
+        times[label] = cs.graph_ms(lambda: kstress.sand_stress(*args))
+    cs.OUT.mkdir(exist_ok=True)
+    sass = sand_sass(Path(_build.build_info()["path"]), tree.name, cs.SAND_B)
+    print(json.dumps({"tree": str(tree), "ms": times, "sand_sass": sass,
+                      "sand_f_trial_minus_i": {
+                          "mean": float(drift.mean()),
+                          "max": float(drift.max())},
                       "card": cs.nvidia_smi_line()}))
     return 0
 

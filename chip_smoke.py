@@ -6,8 +6,8 @@ its plain PyTorch version.
 
 Phases (any failure exits nonzero; no phase carries on past its own):
   1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed), and
-     print K1's, K2's, K3's, K6's and K7's registers, spills, shared
-     memory and blocks per SM as built;
+     print K1's, K2's, K3's, K6's, K7's and K8's registers, spills,
+     shared memory and blocks per SM as built;
   2. the paths, each through MPMSolver.frame with every launch counter
      reset just before it and read just after, each kernel's launches
      held to its count per substep, and a torch.profiler breakdown of 20
@@ -334,6 +334,81 @@ def k1_inputs(state, model, n_el, gen):
     return (d, state.R_inv, state.vol[:n_el], sel_e, model.mu[:n_el],
             model.lam[:n_el], model.gamma[:n_el], model.kappa[:n_el],
             model.friction_coeff)
+
+
+def sand_set(n, dev, all_selected=False):
+    """K8's tip / cone / reflected set of ``n`` particles, seeded: F_trial
+    I + 0.15 N(0, 1), its first eighth scaled by 1.5 (tr(eps) > 0: the
+    tip), the next eighth by 0.5 (compression: the cone) and 100 more
+    reflected (det F < 0); F_prev I + 0.05 N(0, 1); four fifths of the
+    particles selected, or all of them with ``all_selected`` (path B's
+    case); mu 400, lam 600, alpha 0.3."""
+    import torch
+    g_cpu = torch.Generator().manual_seed(7)
+    f_set = torch.eye(3) + 0.15 * torch.randn((n, 3, 3), generator=g_cpu)
+    f_set[: n // 8] *= 1.5                    # tr(eps) > 0: tip
+    f_set[n // 8: n // 4] *= 0.5              # compression: cone
+    f_set[n // 4: n // 4 + 100] = torch.diag(torch.tensor(
+        [1.0, 1.0, -1.0])) @ f_set[n // 4: n // 4 + 100]
+    f_prev = torch.eye(3) + 0.05 * torch.randn((n, 3, 3), generator=g_cpu)
+    sel = (torch.rand(n, generator=g_cpu) > 0.2).float()
+    if all_selected:
+        sel = torch.ones(n)
+    return tuple(a.to(dev) for a in (
+        f_set, f_prev, sel, torch.full((n,), 400.0),
+        torch.full((n,), 600.0), torch.tensor(0.3)))
+
+
+# the FP32 operations counted by plain_ops: each add, subtract, multiply,
+# divide (a reciprocal too) and square root, log and exp, one each (the
+# plain versions make no fused multiply-adds); abs, min, max, comparisons
+# and selects are not counted
+COUNTED_OPS = ("add", "sub", "mul", "div", "reciprocal", "sqrt", "rsqrt",
+               "log", "exp")
+
+
+def plain_ops(fn, args, n: int) -> float:
+    """The FP32 operations that plain version ``fn`` makes per element on
+    ``args`` (``n`` elements, CPU), counted from its aten calls.  A
+    multiply by the literal 1.0 is not counted: it is how PyTorch
+    computes ``1.0 / x`` (a reciprocal, then that multiply)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    total = 0
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, f_args=(), kwargs=None):
+            nonlocal total
+            out = func(*f_args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            by_one = name == "mul" and any(
+                not torch.is_tensor(a) and a == 1.0 for a in f_args)
+            if name in COUNTED_OPS and not by_one:
+                total += out.numel()
+            return out
+
+    with Count():
+        fn(*args)
+    return total / n
+
+
+# sand_stress_plain builds, for every particle, both recompositions of
+# F_new, u diag(exp h) v^T and u diag(1) v^T (9 x (6 multiplies + 2 adds)
+# = 72 operations each), and the log of the trial singular values (3); a
+# particle needs of these, by its branch (elastic, cone, tip), the logs,
+# the first recomposition, or u v^T (9 x (3 + 2) = 45)
+SAND_RECOMPOSE_OPS, SAND_LOG_OPS = 72.0, 3.0
+SAND_BRANCH_OPS = (SAND_LOG_OPS, SAND_RECOMPOSE_OPS, 45.0)
+
+
+def sand_ops(plain_count: float, branches) -> float:
+    """K8's FP32 operations on a set whose plain branch counts
+    (unselected, elastic, cone, tip) are ``branches``, from the plain
+    version's count per particle (``plain_ops``); an unselected particle
+    needs none."""
+    shared = plain_count - 2 * SAND_RECOMPOSE_OPS - SAND_LOG_OPS
+    return sum(k * (shared + extra)
+               for k, extra in zip(branches[1:], SAND_BRANCH_OPS))
 
 
 def random_order(cfg):
@@ -1620,19 +1695,10 @@ def main() -> int:
     sand_b = (state_b.F_trial, state_b.F,
               (state_b.selection[sl_b] == 0).float(), model_b.mu[sl_b],
               model_b.lam[sl_b], model_b.alpha)
-    g_cpu = torch.Generator().manual_seed(7)
-    n_set = SAND_B
-    f_set = torch.eye(3) + 0.15 * torch.randn((n_set, 3, 3), generator=g_cpu)
-    f_set[: n_set // 8] *= 1.5                    # tr(eps) > 0: tip
-    f_set[n_set // 8: n_set // 4] *= 0.5          # compression: cone
-    f_set[n_set // 4: n_set // 4 + 100] = torch.diag(torch.tensor(
-        [1.0, 1.0, -1.0])) @ f_set[n_set // 4: n_set // 4 + 100]
-    sand_set = tuple(a.to(dev) for a in (
-        f_set, torch.eye(3) + 0.05 * torch.randn((n_set, 3, 3),
-                                                 generator=g_cpu),
-        (torch.rand(n_set, generator=g_cpu) > 0.2).float(),
-        torch.full((n_set,), 400.0), torch.full((n_set,), 600.0),
-        torch.tensor(0.3)))
+    sand_ops_plain = plain_ops(kstress.sand_stress_plain,
+                               sand_set(64, "cpu"), 64)
+    print(f"sand_stress_plain: {sand_ops_plain:.0f} FP32 operations per "
+          f"particle (plain_ops)")
 
     def sand_check(label, args):
         f_new, st_k, br = kstress.sand_stress(*args, return_branch=True)
@@ -1658,19 +1724,22 @@ def main() -> int:
         n_sel = int((args[2] > 0.5).sum())
         # bytes: F_trial, sel, mu, lam in (12 floats) and F_new, stress out
         # (18) per particle, F_prev in (9) per unselected particle only;
-        # ~2,000 FP32 operations per selected particle (24 Givens rotations
-        # of A and V ~1,700, U, log/exp, outputs)
+        # the FP32 operations of each selected particle by its branch
+        # (sand_ops: ~1,900-1,980)
         check("sand_stress", [f_new, st_k], [f_ref, st_ref], "sand.cu",
               "mpmavatar_tpu/ops/pallas_stress.py:378",
               lambda: kstress.sand_stress(*args),
               lambda: kstress.sand_stress_plain(*args),
-              4 * (30 * n_t + 9 * (n_t - n_sel)) + 4, 2000.0 * n_sel,
-              launches_b, label=label, err=(max(f_err, s_err), ok, verdict),
+              4 * (30 * n_t + 9 * (n_t - n_sel)) + 4,
+              sand_ops(sand_ops_plain, counts), launches_b, label=label,
+              err=(max(f_err, s_err), ok, verdict),
               extra={"branch_flips": int(flips.sum()), "particles": n_t,
-                     "selected": n_sel})
+                     "selected": n_sel,
+                     **kstress.kernel_info()[kstress.SAND_KERNEL]})
 
     sand_check("sand_stress (path B's 100,000 sand particles)", sand_b)
-    sand_check("sand_stress (tip / cone / reflected set)", sand_set)
+    sand_check("sand_stress (tip / cone / reflected set)",
+               sand_set(SAND_B, dev))
 
     # the backwards: autograd over each plain version through the
     # wrapper's autograd Function, at the shapes above, from seeded

@@ -133,6 +133,7 @@ _SIGNATURES = {
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
     "cloth_stress_info": [_IP],
+    "sand_stress_info": [_IP],
     "p2g_info": [_IP],
     "g2p_info": [_IP],
     "composite_info": [_I, _I, _IP],

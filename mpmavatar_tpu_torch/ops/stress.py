@@ -77,9 +77,10 @@ def _launch_cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa,
 
 
 def kernel_info() -> dict:
-    """K1's registers, spills, shared memory and blocks per SM as built
-    (CUDA only)."""
-    return {KERNEL: _build.kernel_attributes("cloth_stress_info")}
+    """K1's and K8's registers, spills, shared memory and blocks per SM as
+    built (CUDA only)."""
+    return {KERNEL: _build.kernel_attributes("cloth_stress_info"),
+            SAND_KERNEL: _build.kernel_attributes("sand_stress_info")}
 
 
 def _cloth_stress_twin(*args):

@@ -408,6 +408,147 @@ def test_sand_kernel_matches_plain(dev):
     assert float((stress - st_ref)[ok].abs().max()) / 400.0 < 3e-5
 
 
+SAND_BLOCK = 128      # K8's particles per block (csrc/sand.cu kSandThreads)
+
+
+def _check_sand(args):
+    """K8 against its plain version at the tolerances of
+    test_sand_kernel_matches_plain: one launch, at most 2 branch flips,
+    NaN positions equal, F_new within 2e-5 and the stress within 3e-5 mu
+    on the rest; returns (kernel, plain) outputs with the branch codes."""
+    before = _build.launch_counts().get(kstress.SAND_KERNEL, 0)
+    out = kstress.sand_stress(*args, return_branch=True)
+    assert _build.launch_counts()[kstress.SAND_KERNEL] == before + 1
+    ref = kstress.sand_stress_plain(*args, return_branch=True)
+    (f_new, stress, branch), (f_ref, st_ref, b_ref) = out, ref
+    same = branch == b_ref
+    assert int((~same).sum()) <= 2
+    assert torch.equal(torch.isnan(stress), torch.isnan(st_ref))
+    ok = same & ~torch.isnan(st_ref).flatten(1).any(1)
+    if bool(ok.any()):
+        mu = float(args[3].abs().max())
+        assert float((f_new - f_ref)[ok].abs().max()) < 2e-5
+        assert float((stress - st_ref)[ok].abs().max()) / mu < 3e-5
+    return out, ref
+
+
+def _odd_row_view(a):
+    """``a`` as a contiguous view one row past the start of its storage:
+    a (T, 3, 3) slab at a 36-byte offset, not 16-byte aligned."""
+    view = torch.cat([a[:1], a])[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+# T = 1, one short of and one past a block, and a T whose last slab
+# (9 x 7 floats) ends in scalars past its last 16-byte vector
+@pytest.mark.parametrize("t", [1, SAND_BLOCK - 1, SAND_BLOCK + 1,
+                               3 * SAND_BLOCK + 7])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_sand_kernel_on_block_edges_and_unaligned_views(dev, t, aligned):
+    """K8 at block edges, and with F_trial and F_prev as views at an odd
+    row offset (the slabs copied and written as scalars)."""
+    args = _sand_set(dev, t=t, seed=t)
+    if not aligned:
+        args[0], args[1] = _odd_row_view(args[0]), _odd_row_view(args[1])
+    (f_new, stress, branch), _ = _check_sand(args)
+    unsel = args[2] <= 0.5
+    assert torch.equal(f_new[unsel], args[1][unsel])
+    assert float(stress[unsel].abs().max() if bool(unsel.any()) else 0.0) \
+        == 0.0
+    assert torch.equal(branch[unsel],
+                       torch.zeros_like(branch[unsel]))
+
+
+def _selection(kind, t, dev):
+    """Selections over 4 blocks and a part block: every particle, none,
+    or blocks of each kind (all selected, none, one unselected particle,
+    every other one)."""
+    sel = torch.ones(t)
+    if kind == "none":
+        sel.zero_()
+    elif kind == "mixed_blocks":
+        b = SAND_BLOCK
+        sel[b:2 * b] = 0.0
+        sel[2 * b + 37] = 0.0
+        sel[3 * b::2] = 0.0
+    return sel.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["all", "none", "mixed_blocks"])
+def test_sand_kernel_reads_f_prev_where_a_block_needs_it(dev, kind):
+    """The F_prev vote: a block copies F_prev's slab only where one of its
+    particles is unselected.  Each unselected particle gets its own F_prev
+    row exactly and zero stress; the selected ones match the plain
+    version, whether their block copied F_prev or not."""
+    t = 4 * SAND_BLOCK + 50
+    args = _sand_set(dev, t=t)
+    args[2] = _selection(kind, t, dev)
+    (f_new, stress, branch), (f_ref, st_ref, b_ref) = _check_sand(args)
+    unsel = args[2] <= 0.5
+    assert torch.equal(f_new[unsel], args[1][unsel])
+    assert torch.equal(stress[unsel], torch.zeros_like(stress[unsel]))
+    assert torch.equal(branch == kstress.UNSELECTED, unsel)
+    assert torch.equal(b_ref == kstress.UNSELECTED, unsel)
+
+
+def test_sand_kernel_branch_counts_match_the_plain_version(dev):
+    """Off the return map's ties (|tr| and |delta_gamma| of the float64
+    singular values above 1e-3), K8 picks the plain version's branch for
+    every particle, so the branch counts are equal there."""
+    args = _sand_set(dev, t=20_000, seed=3)
+    (_, _, branch), (_, _, b_ref) = _check_sand(args)
+    f64 = args[0].double()
+    eps = torch.log(torch.linalg.svdvals(f64).clamp_min(1e-14))
+    tr = eps.sum(1)
+    eh = eps - tr[:, None] / 3.0
+    mu, lam, alpha = 400.0, 600.0, 0.3
+    dg = eh.norm(dim=1) + (3 * lam + 2 * mu) / (2 * mu) * tr * alpha
+    off = (tr.abs() > 1e-3) & (dg.abs() > 1e-3)
+    assert int(off.sum()) > 15_000
+    assert torch.equal(branch[off], b_ref[off])
+    counts = torch.bincount(branch[off].long(), minlength=4)
+    assert torch.equal(counts, torch.bincount(b_ref[off].long(),
+                                              minlength=4))
+    assert bool((counts > 0).all())
+
+
+def test_sand_kernel_on_scaled_identities(dev):
+    """F_trial = s I (s = 0.9, 1, 1.1 by particle) and s I with a
+    symmetric 0.01 coupling of its first two axes: F^T F has equal
+    diagonal entries, so the Jacobi rotations divide a zero difference,
+    the case K8 keeps off the division's slow path.  The kernel matches
+    the plain version there, each particle on the plain version's
+    branch, each away from the ties: elastic (compression), the cone
+    (at F = I exactly: delta_gamma = 1e-12 > 0, tr = 0), the tip
+    (expansion)."""
+    t = 3 * SAND_BLOCK + 5
+    scale = torch.tensor([0.9, 1.0, 1.1], device=dev)[
+        torch.arange(t, device=dev) % 3]
+    eye = scale[:, None, None] * torch.eye(3, device=dev)
+    coupled = eye.clone()
+    coupled[:, 0, 1] = coupled[:, 1, 0] = 0.01
+    want = torch.tensor([kstress.ELASTIC, kstress.CONE, kstress.TIP],
+                        dtype=torch.int32, device=dev)[
+        torch.arange(t, device=dev) % 3]
+    for f_trial in (eye, coupled):
+        args = _sand_set(dev, t=t)
+        args[0], args[2] = f_trial, torch.ones(t, device=dev)
+        (_, _, branch), (_, _, b_ref) = _check_sand(args)
+        assert torch.equal(branch, b_ref)
+        if f_trial is eye:
+            assert torch.equal(branch, want)
+
+
+def test_sand_kernel_info(dev):
+    """K8 as built: no stack or spills, and path B's 100,000 particles
+    (782 blocks) in one wave on the card."""
+    info = kstress.kernel_info()[kstress.SAND_KERNEL]
+    assert info["spill_bytes"] == 0 and info["shared_bytes"] > 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["blocks_per_sm"] * sms >= -(-100_000 // SAND_BLOCK)
+
+
 def test_g2p_kernel_matches_plain(dev):
     cfg, st, model, rnd = _scene(dev)
     grid_v = rnd(cfg.n_grid ** 3, 3)

@@ -36,7 +36,8 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      path B's state, with their blocks counted by branch (shared-memory
      tile, or straight into or from the grid); the backward of K1, K2,
      K5, K3 and K8
-     (autograd over the plain version) timed at the same shapes;
+     (autograd over the plain version) timed at the same shapes, and K4's
+     at the material trainer's mover (its 183 pinned points on 200^3);
   5. 10 substeps on the kernel path against 10 on the plain path (CPU)
      from the same perturbed states, for a few seeds:
      - the cloth drop, beside two sound plain runs an ulp apart and two
@@ -91,7 +92,23 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      plain path on the CPU, per leaf relative to its largest entry (the
      elements that cross R33 = 1 between the two counted and left out),
      beside a wrong path: the kernels' outputs detached, as before they
-     had a backward.
+     had a backward;
+  9. the material train step at full width (train/bench_material.py's
+     production shape: the 183 x 183 hanging cloth, 99,737 particles,
+     200^3, its top row of 183 vertices pinned by the mover, the 32 x 32
+     body sphere; 2 frames x 10 substeps, dt = 1e-4), the tracked cloth
+     turning about the vertical axis and the rest shape 10% shorter in y:
+     one untimed warm-up step, then TRAIN_STEPS_M train steps with the
+     launch counters reset just before and read just after (each
+     substep's kernels three times: forward, the frame's recompute and
+     its own), ms per step and per
+     differentiated substep, peak memory and a profile of one more step;
+     the loss finite and D, E, H moving; a finite-difference step whose
+     probe-0 loss must equal the autodiff forward's at the same
+     parameters; simulate for 2 frames (finite, the cloth moves); d/d(D,
+     E, H) over MAT_GRAD_SUBSTEPS substeps against the CPU plain path,
+     beside a wrong path (the kernels' outputs detached) and the reading
+     with the mover's points detached.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -206,6 +223,24 @@ STEP_GRAD_TOL = 1e-3
 # GRAD_SUBSTEPS substeps forward and back
 GRAD_SUBSTEPS = 3
 SUBSTEP_GRAD_TOL = 1e-3
+
+# the material train step (phase 9): bench_material's production shape
+# (183 x 183 hanging cloth, 200^3, the pinned top row) cut in depth only,
+# dt = 1 / (fps substeps) kept at 1e-4; the tracked cloth turns at
+# MAT_OMEGA about the vertical axis (so the pinned row moves with a
+# non-uniform velocity) with seeded noise on its free vertices, and the
+# rest shape is 10% shorter in y than the start; TRAIN_STEPS_M counted
+# steps after one warm-up step; the finite-difference step's probe-0
+# loss against the autodiff forward at the same parameters (the same
+# kernels, K2's atomics in another order); the gradient against the CPU
+# plain path over MAT_GRAD_SUBSTEPS substeps, per leaf as |a - b| /
+# |cpu|, at phase 8's tolerance
+MAT_NX, MAT_GRID, MAT_FRAMES, MAT_SUBSTEPS = 183, 200, 2, 10
+MAT_OMEGA, MAT_NOISE = 2.0, 1e-4
+TRAIN_STEPS_M = 3
+FD_LOSS_TOL = 1e-6
+MAT_GRAD_GRID, MAT_GRAD_SUBSTEPS = 200, 3
+SIM_MOVE_MIN = 1e-4
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -1263,6 +1298,225 @@ def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
     return ms
 
 
+def material_trainer(dev, grid, frames, substeps, seed=0):
+    """bench_material.make_trainer at full width on ``dev``: the hanging
+    cloth turning at MAT_OMEGA (seeded noise of MAT_NOISE on the tracked
+    free vertices), its rest shape 10% shorter in y, dt = 1e-4.  Returns
+    (trainer, tracked trajectory (F+1, V, 3), body sequence)."""
+    import numpy as np
+    from mpmavatar_tpu_torch.train import bench_material
+    fps = 1.0 / (DT * substeps)
+    verts, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
+    x, z = verts[:, 0] - 1.0, verts[:, 2] - 1.0
+    train = np.repeat(verts[None], frames + 1, 0)
+    for i in range(frames + 1):
+        a = MAT_OMEGA * i / fps
+        train[i, :, 0] = 1.0 + np.cos(a) * x + np.sin(a) * z
+        train[i, :, 2] = 1.0 - np.sin(a) * x + np.cos(a) * z
+    rng = np.random.default_rng(seed)
+    train[1:, MAT_NX:] += rng.normal(0, MAT_NOISE, train[1:, MAT_NX:].shape
+                                     ).astype(np.float32)
+    first = verts * np.float32([1.0, 0.9, 1.0])
+    tr, _, _, body, _ = bench_material.make_trainer(
+        MAT_NX, MAT_NX, grid, substeps, frames, iterations=10,
+        train_verts=train, fps=fps, first_frame_verts=first, device=dev)
+    return tr, train, body
+
+
+def material_path(dev, per_sub) -> tuple:
+    """Phase 9, the material train step; returns (ms per step, launches
+    per step)."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.core import stepping
+    from mpmavatar_tpu_torch.ops import _autograd, _build
+    tr, train, body = material_trainer(dev, MAT_GRID, MAT_FRAMES,
+                                       MAT_SUBSTEPS)
+    cfg = tr.static
+    n_sub = MAT_FRAMES * MAT_SUBSTEPS
+    dt = (1.0 / tr.cfg.fps) / tr.cfg.substep
+    print(f"material train step (bench_material at {MAT_NX}x{MAT_NX}, "
+          f"{MAT_GRID}^3): P={cfg.n_particles}, {cfg.num_joint_v} pinned "
+          f"vertices, {len(tr.smplx_faces)} collider faces, {MAT_FRAMES} "
+          f"frames x {MAT_SUBSTEPS} substeps, dt={dt:.6g}")
+    if not (cfg.n_particles == MAT_NX ** 2 + 2 * (MAT_NX - 1) ** 2
+            and cfg.n_grid == MAT_GRID and cfg.num_joint_v == MAT_NX
+            and abs(dt - DT) < 1e-12):
+        raise AssertionError("material train step: not the production shape")
+
+    def step_s():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = tr.train_one_step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, loss
+
+    # one untimed step first (the allocator's growth, each shape's first
+    # use), as bench_material.run_bench does; the counted steps follow
+    warm_ms = 1e3 * step_s()[0]
+    init = tr._params_now()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    steps = [step_s() for _ in range(TRAIN_STEPS_M)]
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # each substep's kernels run in the forward, in its frame's recompute
+    # and in its own recompute (frame and substep both checkpointed); the
+    # backwards launch none
+    want = {k: 3 * per * n_sub * TRAIN_STEPS_M for k, per in per_sub.items()}
+    if launches != want:
+        raise AssertionError(f"material train step: launches {launches}, "
+                             f"expected {want}")
+    ms = [1e3 * s for s, _ in steps]
+    losses = [loss for _, loss in steps]
+    params = tr._params_now()
+    med = statistics.median(ms)
+    print(f"material train step: launches {launches} in {TRAIN_STEPS_M} "
+          f"steps (3 x per substep x {n_sub} substeps each); "
+          f"{med:.4f} ms/step median ({min(ms):.4f}-{max(ms):.4f}; the "
+          f"untimed warm-up step before them {warm_ms:.4f} ms), "
+          f"{med / n_sub:.4f} ms per differentiated substep; losses "
+          + ", ".join(f"{x:.6e}" for x in losses) + "; D, E, H "
+          + ", ".join(f"{init[k]:.6f} -> {params[k]:.6f}" for k in "DEH")
+          + f"; peak allocated {peak / 2 ** 30:.3f} GiB "
+          f"({(peak - base) / 2 ** 30:.3f} GiB above the "
+          f"{base / 2 ** 30:.3f} GiB held before)")
+    if not all(np.isfinite(losses)) or not all(
+            params[k] != init[k] for k in "DEH"):
+        raise AssertionError("material train step: a loss is not finite or "
+                             "a parameter did not move")
+    # the step's parts, once more at the same parameters: the forward
+    # under grad, then autograd (both recomputes and the twins'
+    # backwards); and the forward alone, without grad
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tr.rollout_loss(tr.params)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(loss, [tr.params[k] for k in "DEH"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with torch.no_grad():
+        tr.rollout_loss(tr.params)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    fwd_ms, bwd_ms, plain_fwd_ms = (1e3 * (t1 - t0), 1e3 * (t2 - t1),
+                                    1e3 * (t3 - t2))
+    print(f"material train step parts: forward under grad {fwd_ms:.4f} ms, "
+          f"autograd (two recomputes and the backwards) {bwd_ms:.4f} ms, "
+          f"forward without grad {plain_fwd_ms:.4f} ms; grad/forward "
+          f"{(fwd_ms + bwd_ms) / plain_fwd_ms:.2f}; the backwards alone, "
+          f"taking each recompute as one forward under grad, "
+          f"{100 * (bwd_ms - 2 * fwd_ms) / (fwd_ms + bwd_ms):.1f}% of the "
+          f"step's rollout")
+    busy_s, prof_wall, rows = profile_device(tr.train_one_step)
+    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                      for key, us, calls in rows)
+    (OUT / "chip_smoke_profile_material_step.txt").write_text(table + "\n")
+    if rows:
+        print(f"material train step profile: device busy "
+              f"{1e3 * busy_s:.4f} ms/step in {sum(r[2] for r in rows)} "
+              f"kernels/step, {1e3 * prof_wall:.4f} ms profiled wall; "
+              f"against the unprofiled median the device is idle "
+              f"{100 * max(0.0, 1 - 1e3 * busy_s / med):.1f}% of the time")
+        for key, us, calls in rows[:8]:
+            print(f"  {us / 1e3:10.4f} ms/step {calls:7d}/step  {key[:90]}")
+    else:
+        print("material train step profile: the profiler recorded no device "
+              "time; device busy not measured")
+
+    # the finite-difference step's probe 0 against the autodiff forward
+    ad_loss = float(tr.rollout_loss(tr.params).detach())
+    fd_loss, fd_params = tr.train_one_step_finite_diff()
+    fd_rel = abs(fd_loss - ad_loss) / abs(ad_loss)
+    print(f"finite-difference step: probe-0 loss {fd_loss:.9e} against the "
+          f"autodiff forward {ad_loss:.9e}: rel {fd_rel:.3e} (tol "
+          f"{FD_LOSS_TOL:.0e}); D, E, H after it "
+          + ", ".join(f"{fd_params[k]:.6f}" for k in "DEH"))
+    if not fd_rel <= FD_LOSS_TOL:
+        raise AssertionError("the finite-difference step's loss disagrees "
+                             "with the autodiff forward")
+
+    # stage-4 simulate: the trained parameters, the pinned row turning
+    jv = lambda i: (train[i + 1, :MAT_NX] - train[i, :MAT_NX]) * (
+        1.0 / (DT * MAT_SUBSTEPS))
+    t0 = time.perf_counter()
+    frames = tr.simulate(train[0], np.zeros_like(train[0]), body,
+                         np.zeros_like(body), MAT_FRAMES, joint_velo_fn=jv)
+    move = float(np.abs(frames[-1] - train[0]).max())
+    print(f"simulate: {MAT_FRAMES} frames in {time.perf_counter() - t0:.2f} "
+          f"s, finite {all(np.isfinite(f).all() for f in frames)}, the "
+          f"cloth moved up to {move:.3e} (at least {SIM_MOVE_MIN:.0e}), "
+          f"the pinned row turning at {MAT_OMEGA} rad/s")
+    if not all(np.isfinite(f).all() for f in frames) or not \
+            move >= SIM_MOVE_MIN:
+        raise AssertionError("simulate: not finite, or the cloth did not "
+                             "move")
+
+    # the gradient against the CPU plain path
+    def grads(trainer):
+        leaves = [trainer.params[k] for k in "DEH"]
+        loss = trainer.rollout_loss(trainer.params)
+        if not loss.requires_grad:      # every path ran through a kernel
+            return [0.0, 0.0, 0.0]
+        return [float(g) for g in torch.autograd.grad(loss, leaves)]
+
+    g_card = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
+                                    MAT_GRAD_SUBSTEPS)[0])
+    # a sound repeat: the same rollout again (K2's atomics add in another
+    # order)
+    g_again = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
+                                     MAT_GRAD_SUBSTEPS)[0])
+    t0 = time.perf_counter()
+    g_cpu = grads(material_trainer("cpu", MAT_GRAD_GRID, 1,
+                                   MAT_GRAD_SUBSTEPS)[0])
+    cpu_s = time.perf_counter() - t0
+    real_call = _autograd.call
+    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    try:
+        g_wrong = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
+                                         MAT_GRAD_SUBSTEPS)[0])
+    finally:
+        _autograd.call = real_call
+    real_points = stepping.mover_points
+    stepping.mover_points = lambda *a, **k: tuple(
+        t.detach() for t in real_points(*a, **k))
+    try:
+        g_cut = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
+                                       MAT_GRAD_SUBSTEPS)[0])
+    finally:
+        stepping.mover_points = real_points
+    rel = lambda a, b: [abs(x - y) / max(abs(y), 1e-30)
+                        for x, y in zip(a, b)]
+    sound, bad = rel(g_card, g_cpu), rel(g_wrong, g_cpu)
+    share, repeat = rel(g_cut, g_card), rel(g_again, g_card)
+    print(f"material gradient ({MAT_GRAD_SUBSTEPS} substeps at "
+          f"{MAT_GRAD_GRID}^3) against the plain path on the CPU (its "
+          f"rollout and backward {cpu_s:.1f} s): d/dD, d/dE, d/dH card "
+          + ", ".join(f"{g:.6e}" for g in g_card) + ", cpu "
+          + ", ".join(f"{g:.6e}" for g in g_cpu) + "; rel err "
+          + ", ".join(f"{e:.3e}" for e in sound)
+          + f" (tol {SUBSTEP_GRAD_TOL:.0e}); wrong path (the kernels' "
+          f"outputs detached) "
+          + ", ".join(f"{e:.3e}" for e in bad)
+          + "; the mover's points detached: change "
+          + ", ".join(f"{e:.3e}" for e in share)
+          + "; the same rollout again: change "
+          + ", ".join(f"{e:.3e}" for e in repeat))
+    if not all(g != 0.0 for g in g_cpu):
+        raise AssertionError("a material gradient is zero on the plain path")
+    if not max(sound) <= SUBSTEP_GRAD_TOL:
+        raise AssertionError("the material gradient disagrees with the plain "
+                             "path")
+    if not min(bad) > SUBSTEP_GRAD_TOL:
+        raise AssertionError("the gradient limit does not separate the wrong "
+                             "path")
+    per_step = {k: v // TRAIN_STEPS_M for k, v in launches.items()}
+    return med, per_step
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1583,6 +1837,20 @@ def main() -> int:
                               joint_vals, GRID)
     splat_check("splat (collider faces, 250^3)", face_pts, face_vals,
                 GRID_B)
+    # the material trainer's mover (phase 9): its pinned row on 200^3,
+    # turning at MAT_OMEGA about the vertical axis
+    import numpy as np
+    from mpmavatar_tpu_torch.sim import SimTransform
+    from mpmavatar_tpu_torch.train import bench_material
+    cloth_m, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
+    tf_m = SimTransform.from_verts(cloth_m)
+    row = cloth_m[:MAT_NX]
+    row_v = MAT_OMEGA * np.stack([row[:, 2] - 1.0, np.zeros(MAT_NX),
+                                  1.0 - row[:, 0]], -1)
+    mover_m = (tf_m.wld2sim(row, dev), tf_m.vel2sim(row_v, dev))
+    mover_label = (f"splat (the material trainer's {MAT_NX} pinned points, "
+                   f"{MAT_GRID}^3)")
+    splat_check(mover_label, *mover_m, MAT_GRID)
     edge = 0.1 + 1.8 * torch.rand((20_000, 3), generator=gen, device=dev)
     dx = 2.0 / GRID
     edge[:2000, 0] = (GRID - 2.3) * dx + 0.4 * dx * torch.rand(
@@ -1744,7 +2012,7 @@ def main() -> int:
     # the backwards: autograd over each plain version through the
     # wrapper's autograd Function, at the shapes above, from seeded
     # cotangents (the backward launches no kernel)
-    def backward_check(name, fn, args, wrt):
+    def backward_check(name, fn, args, wrt, label=None):
         leaves = [a.detach().clone().requires_grad_(i in wrt)
                   if torch.is_tensor(a) else a for i, a in enumerate(args)]
         outs = fn(*leaves)
@@ -1763,10 +2031,15 @@ def main() -> int:
             raise AssertionError(f"{name}: its backward launched "
                                  f"{_build.launch_counts()}")
         busy, _, rows = profile_device(run)
-        results[name].update(bwd_ms=1e3 * busy, bwd_eager_ms=eager)
-        print(f"{name} backward (autograd over the plain version): device "
+        # on the entry of the shape it ran at: the kernel's first, or the
+        # further shape checked under ``label``
+        entry = results[name] if label is None else next(
+            e for e in results[name]["other_shapes"] if e["label"] == label)
+        entry.update(bwd_ms=1e3 * busy, bwd_eager_ms=eager)
+        print(f"{label or name} backward (autograd over the plain version): "
+              f"device "
               f"{1e3 * busy:.4f} ms in {sum(r[2] for r in rows)} kernels, "
-              f"eager {eager:.4f} ms; forward {results[name]['ms']:.4f} ms")
+              f"eager {eager:.4f} ms")
 
     backward_check("cloth_stress", kstress.cloth_stress, k1_in,
                    (0, 1, 2, 4, 5, 6, 7, 8))
@@ -1778,6 +2051,9 @@ def main() -> int:
                    (0, 1))
     backward_check("sand_stress", kstress.sand_stress, sand_b,
                    (0, 1, 3, 4, 5))
+    backward_check("splat", ksplat.splat,
+                   (*mover_m, MAT_GRID, MAT_GRID / 2.0, True), (0, 1),
+                   label=mover_label)
 
     # ---- 5. kernel path vs plain path over several substeps ------------
     from mpmavatar_tpu_torch.core import linalg
@@ -1926,11 +2202,15 @@ def main() -> int:
     grad_ms = grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
                         per_sub)
 
+    # ---- 9. the material train step -------------------------------------
+    mat_ms, mat_launches = material_path(dev, per_sub_a)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
           f"ms/substep; render "
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
-          + f" ms/frame; train step {train_ms:.4f} ms on {smi}; chip_smoke ran "
+          + f" ms/frame; train step {train_ms:.4f} ms; material train step "
+          f"{mat_ms:.4f} ms on {smi}; chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
         entry["launches_by_path"] = {
@@ -1939,7 +2219,8 @@ def main() -> int:
             "path_B": launches_b.get(entry["name"], 0),
             **{f"render_{name}": counts.get(entry["name"], 0)
                for name, (_, counts) in render.items()},
-            "train_step": train_launches.get(entry["name"], 0)}
+            "train_step": train_launches.get(entry["name"], 0),
+            "material_train_step": mat_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

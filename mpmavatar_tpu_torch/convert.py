@@ -13,8 +13,10 @@ render inputs (splats, the avatar's learnables with its shadow UNet, its
 static assets, a device camera); ``densify_state_from_numpy`` the
 densification statistics (``to_numpy`` takes them back), and
 ``float_grads_to_numpy`` the train step's gradients, nested as the JAX
-package's AvatarParams pytree.  Tests use these so both packages start
-from identical data.
+package's AvatarParams pytree.  ``material_params_from_numpy`` sets a
+material trainer's D, E, H and its Adam state (optax's ``mu``, ``nu``,
+``count``).  Tests use these so both packages start from identical
+data.
 """
 
 from __future__ import annotations
@@ -129,3 +131,24 @@ def float_grads_to_numpy(grads: dict) -> dict:
             node = node.setdefault(key, {})
         node[leaf] = g.detach().cpu().numpy()
     return out
+
+
+def material_params_from_numpy(trainer, params: dict, mu=None, nu=None,
+                               count=None) -> None:
+    """Set ``trainer``'s (a ``train.material.MaterialTrainer``) D, E
+    (stored /100) and H to ``params[name]`` and, when ``mu``, ``nu`` and
+    ``count`` are given (optax's ScaleByAdamState per parameter: name ->
+    first and second moment, name -> step count), its Adam state, so that
+    its next step continues an optax Adam run."""
+    with torch.no_grad():
+        for name, p in trainer.params.items():
+            p.copy_(torch.as_tensor(np.float32(params[name])))
+    if mu is None:
+        return
+    for name, p in trainer.params.items():
+        trainer.optimizer.state[p] = {
+            "step": torch.tensor(float(count[name]), dtype=torch.float32),
+            "exp_avg": torch.as_tensor(np.float32(mu[name]),
+                                       device=p.device).clone(),
+            "exp_avg_sq": torch.as_tensor(np.float32(nu[name]),
+                                          device=p.device).clone()}

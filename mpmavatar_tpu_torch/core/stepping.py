@@ -171,8 +171,8 @@ def mesh_collider_fields(cfg: MPMStaticConfig, col: MeshCollider, mesh_x,
                          mesh_v):
     """Face-centroid velocity + unit normal splatted to the grid through
     K4 (``ops.splat.splat``, the splat half of apply_mesh_collider):
-    (acc (G^3, 6), grid_w (G^3,)).  The splat is forward-only, so its
-    inputs are detached, as the JAX package's ``stop_gradient`` does:
+    (acc (G^3, 6), grid_w (G^3,)).  Its inputs are detached, as the JAX
+    package's ``stop_gradient`` does:
     the collider mesh is a rollout input and no gradient reaches it."""
     points, values = mesh_face_values(col, mesh_x, mesh_v)
     return _splat.splat(points.detach(), values.detach(), cfg.n_grid,
@@ -227,9 +227,9 @@ def mover_fields(cfg: MPMStaticConfig, state: MPMState, joint_verts_v=None,
                  joint_faces_v=None, joint_traditional_v=None):
     """Prescribed joint velocities splatted from the joint particles'
     positions in one splat through K4 (the scatter half of
-    apply_particle_mover): (grid_vel (G^3, 3), grid_w (G^3,)).  K4 has no
-    backward: on the card it raises when grad mode is on and
-    ``state.x`` requires grad (ops/splat.py)."""
+    apply_particle_mover): (grid_vel (G^3, 3), grid_w (G^3,)).  Under
+    grad both fields are differentiable w.r.t. ``state.x``, as JAX's
+    ``rasterize_to_grid`` is (ops/splat.py)."""
     points = mover_points(cfg, state, joint_verts_v, joint_faces_v,
                           joint_traditional_v)
     if points is None:

@@ -1,3 +1,4 @@
 """Configuration of the port's training stages."""
 
-from .config import OptimizationParams  # noqa: F401
+from .config import (ModelParams, OptimizationParams,  # noqa: F401
+                     add_dataclass_args, extract_dataclass)

@@ -1,11 +1,12 @@
-"""Gradients of the hand-written kernels K1, K2, K3, K5 and K8.
+"""Gradients of the hand-written kernels K1, K2, K3, K4, K5 and K8.
 
-Their JAX entry points are ``jax.custom_vjp``s whose forward is the
+The JAX entry points of K1, K2, K3, K5 and K8 are ``jax.custom_vjp``s whose forward is the
 Pallas kernel and whose backward re-traces the kernel's jnp math with
 ``jax.vjp`` (mpmavatar_tpu/ops/pallas_stress.py::_stress_bwd and
 ::_sand_bwd, ops/pallas_transfer.py::_p2g_fused_bwd and ::_g2p_fused_bwd,
 ops/pallas_grid_pipeline.py::make_grid_pipeline's ``bwd``).  None of
-those backwards is a Pallas kernel.  ``call`` does the same here: the
+those backwards is a Pallas kernel; K4's mover splat is the plain
+``stepping.rasterize_to_grid`` in JAX, which XLA differentiates.  ``call`` does the same here: the
 forward launches the CUDA kernel, and the backward recomputes the
 kernel's plain PyTorch version from the saved inputs and differentiates
 it with autograd.

@@ -56,7 +56,11 @@ __global__ void splat_kernel(const float* __restrict__ points,
   float wa[3];
   bool inside = true;
   for (int a = 0; a < 3; ++a) {
-    const float gp = points[3 * p + a] * inv_dx;
+    // rounded as the plain version rounds it: a multiply contracted
+    // into the subtractions below would move fx by up to half an ulp
+    // of x * inv_dx (~4e-6 at G = 200, where inv_dx = 100 is not a
+    // power of two) and the floor at ties
+    const float gp = __fmul_rn(points[3 * p + a], inv_dx);
     base[a] = static_cast<int>(floorf(gp - 0.5f));
     wa[a] = bspline_weight(gp - static_cast<float>(base[a]), off[a]);
     inside = inside && base[a] >= 0 && base[a] < G - 3;

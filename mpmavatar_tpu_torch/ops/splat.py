@@ -10,20 +10,24 @@ x-major, the weight comes back as its own channel, and the bounds check is
 the reference's asymmetric ``base >= 0 & base < G - 3`` on every axis (a
 point with base G - 3 is dropped whole).
 
-Forward only, as in the JAX package, where ``splat_columns_fused`` has no
-VJP: the collider splat's inputs are detached by
-core/stepping.py::mesh_collider_fields (JAX's ``stop_gradient``), and on
-CUDA tensors ``splat`` raises rather than return a field that silently
-drops a gradient.  The mover splat (``stepping.mover_fields``) splats the
-joint particles' own positions, ``state.x``: a differentiated rollout
-with a particle mover has to detach them, or give the mover a backward.
+The collider splat's inputs are detached by
+core/stepping.py::mesh_collider_fields (JAX's ``stop_gradient``): the
+collider mesh is a rollout input.  The mover splat
+(``stepping.mover_fields``) splats the joint particles' own positions,
+``state.x``, which a differentiated rollout makes depend on the material
+parameters.  JAX differentiates that splat through the plain
+``rasterize_to_grid``; its forward-only ``splat_columns_fused`` serves
+only the halo path, which the port does not have.  So on CUDA tensors
+that need grad ``splat`` launches the kernel inside
+``_autograd.KernelWithTwinGrad``, whose backward is autograd over
+``splat_plain``, as for K1, K2, K3, K5 and K8.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _autograd, _build
 from .transfer import bspline, flat_indices, scatter_rows, stencil_products
 
 KERNEL = "splat"
@@ -41,19 +45,17 @@ def splat(points, values, n_grid: int, inv_dx: float,
     and of w, w the 27-node stencil weight.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
-    plain version only for CPU tensors.  The kernel has no backward: on
-    CUDA tensors it raises when grad mode is on and the points or values
-    require grad."""
+    plain version only for CPU tensors.  Under grad, points and values
+    are differentiable; the backward is autograd over ``splat_plain``."""
     _check_shapes(points, values)
     if not points.is_cuda:
         return splat_plain(points, values, n_grid, inv_dx, bounds_check)
-    if torch.is_grad_enabled() and (points.requires_grad
-                                    or values.requires_grad):
-        raise RuntimeError(
-            "splat (K4) has no backward, as in the JAX package: its inputs "
-            "require grad.  The particle mover (stepping.mover_fields) "
-            "splats the joint particles' positions state.x; detach them, "
-            "or run the rollout without a mover, to differentiate it")
+    return _autograd.call(_launch, splat_plain, points, values, n_grid,
+                          inv_dx, bounds_check)
+
+
+def _launch(points, values, n_grid, inv_dx, bounds_check):
+    """K4 on CUDA tensors into two zero-filled grids."""
     pts = _build.check_cuda("points", points)
     vals = _build.check_cuda("values", values)
     n, ch = vals.shape

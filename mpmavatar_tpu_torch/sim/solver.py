@@ -1,5 +1,7 @@
-"""Solver orchestration: collider registry and the frame loop (port of
-mpmavatar_tpu/sim/solver.py).
+"""Solver orchestration: collider registry, the frame loop (with its
+substeps optionally checkpointed for a differentiated rollout), the
+world <-> sim transform, the material-parameter setters and the
+covariance helpers (port of mpmavatar_tpu/sim/solver.py).
 
 The TPU solver's column-bin, halo, z-window, bf16 and rebinning knobs and
 their cap sizing (``adapt_row_cap``, ``calibrate_caps``,
@@ -15,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..core import stepping
@@ -24,7 +27,8 @@ from ..core.colliders import (BoundingBoxCollider, ColliderSet,
                               ParticleVelocityModifier,
                               RotationVelocityModifier, SurfaceCollider,
                               CUT, FRICTIONAL, SLIP, STICKY)
-from ..core.types import MPMModel, MPMState, MPMStaticConfig
+from ..core.types import (MPMModel, MPMState, MPMStaticConfig,
+                          finalize_mu_lam)
 
 MATERIAL_IDS = {
     "jelly": 0, "metal": 1, "sand": 2, "foam": 3, "snow": 4,
@@ -208,11 +212,17 @@ class MPMSolver:
 
     def frame(self, state: MPMState, model: MPMModel, dt: float,
               num_substeps: int, time0: float, mesh_x=None, mesh_v=None,
-              joint_verts_v=None, joint_faces_v=None):
+              joint_verts_v=None, joint_faces_v=None, remat: bool = False):
         """``num_substeps`` substeps from ``time0``; returns (state, time).
         Time advances in float32 steps of dt, as in the JAX frame scan.
         ``mesh_x`` is the collider mesh at the frame's start: substep s
-        sees ``mesh_x + (s dt) mesh_v``, computed on the device."""
+        sees ``mesh_x + (s dt) mesh_v``, computed on the device.
+
+        ``remat=True`` runs each substep under a non-reentrant
+        ``torch.utils.checkpoint``, as the JAX frame checkpoints its
+        scanned body: the backward keeps only each substep's input state
+        and recomputes the substep (its kernels launch again) when it
+        needs the rest.  The forward is the same computation."""
         t = np.float32(time0)
         dt32 = np.float32(dt)
         grid_stage = self.grid_stage()
@@ -221,13 +231,23 @@ class MPMSolver:
         mesh_x, mesh_v = as_dev(mesh_x), as_dev(mesh_v)
         joints = dict(joint_verts_v=as_dev(joint_verts_v),
                       joint_faces_v=as_dev(joint_faces_v))
+
+        def substep(state, mx, time):
+            return stepping.p2g2p(self.cfg, self.colliders, state, model,
+                                  float(dt32), time, mesh_x=mx,
+                                  mesh_v=mesh_v, grid_stage=grid_stage,
+                                  **joints)
+
         for s in range(num_substeps):
             mx = None if mesh_x is None else \
                 mesh_x + float(np.float32(s) * dt32) * mesh_v
-            state = stepping.p2g2p(self.cfg, self.colliders, state, model,
-                                   float(dt32), float(t), mesh_x=mx,
-                                   mesh_v=mesh_v, grid_stage=grid_stage,
-                                   **joints)
+            if remat:
+                # the substep draws no random numbers: no RNG state to keep
+                state = checkpoint(substep, state, mx, float(t),
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+            else:
+                state = substep(state, mx, float(t))
             t = np.float32(t + dt32)
         return state, float(t)
 
@@ -253,3 +273,185 @@ def validate_state(state: MPMState) -> dict:
         if n_bad:
             bad[field] = n_bad
     return bad
+
+
+def cfl_dt(state: MPMState, cfg: MPMStaticConfig, safety: float = 0.5,
+           dt_max: float = 1e-3) -> float:
+    """Suggested stable dt from the CFL condition |v| dt < safety * dx."""
+    vmax = float(state.v.detach().abs().max())
+    if vmax <= 0:
+        return dt_max
+    return min(dt_max, safety * cfg.dx / vmax)
+
+
+# ----------------------------------------------------------------------
+# world <-> sim normalization
+# ----------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class SimTransform:
+    """Maps world space into the simulation box: p * scale + shift, the
+    garment's bounding box scaled to unit extent and centred on
+    (1, 1, 1)."""
+
+    scale: float
+    shift: np.ndarray  # (3,) float32
+
+    @classmethod
+    def from_verts(cls, verts) -> "SimTransform":
+        v = verts.detach().cpu().numpy() if isinstance(verts, torch.Tensor) \
+            else np.asarray(verts)
+        min_pos = v.min(0)
+        max_pos = v.max(0)
+        scale = 1.0 / float((max_pos - min_pos).max())
+        shift = np.ones(3) - (min_pos + max_pos) / 2.0 * scale
+        return cls(scale=scale, shift=shift.astype(np.float32))
+
+    @staticmethod
+    def _tensor(p, device=None):
+        if isinstance(p, torch.Tensor):
+            return p
+        return torch.as_tensor(np.asarray(p, np.float32), device=device)
+
+    def wld2sim(self, p, device=None):
+        """World -> sim positions (a tensor; numpy input goes to
+        ``device``, default the CPU)."""
+        p = self._tensor(p, device)
+        return p * self.scale + torch.as_tensor(self.shift, device=p.device)
+
+    def sim2wld(self, p, device=None):
+        p = self._tensor(p, device)
+        return (p - torch.as_tensor(self.shift, device=p.device)) / self.scale
+
+    def vel2sim(self, v, device=None):
+        return self._tensor(v, device) * self.scale
+
+
+def _f32(value, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.float32(value), device=like.device)
+
+
+def set_parameters_dict(cfg: MPMStaticConfig, model: MPMModel,
+                        state: MPMState, params: dict):
+    """Apply a parameter dict (the reference solver's
+    ``set_parameters_dict`` keys).  Returns (cfg, model, state);
+    ``material`` and ``hardening`` change the static config."""
+    if "material" in params:
+        cfg = dataclasses.replace(cfg,
+                                  material=MATERIAL_IDS[params["material"]])
+    mupd = {}
+    if "g" in params:
+        mupd["gravity"] = torch.as_tensor(
+            np.asarray(params["g"], np.float32), device=model.E.device)
+    if "friction_angle" in params:
+        ang = params["friction_angle"] / 180.0 * 3.14159265
+        sin_phi = np.sin(ang)
+        mupd["friction_coeff"] = _f32(np.tan(ang), model.E)
+        mupd["alpha"] = _f32(np.sqrt(2.0 / 3.0) * 2.0 * sin_phi
+                             / (3.0 - sin_phi), model.E)
+    for k in ("rpic_damping", "plastic_viscosity", "softening",
+              "grid_v_damping_scale", "xi"):
+        if k in params:
+            mupd[k] = _f32(params[k], model.E)
+    if mupd:
+        model = dataclasses.replace(model, **mupd)
+    supd = {}
+    if "yield_stress" in params:
+        supd["yield_stress"] = torch.full_like(state.yield_stress,
+                                               float(params["yield_stress"]))
+    if "density" in params:
+        density = torch.full_like(state.density, float(params["density"]))
+        supd["density"] = density
+        supd["mass"] = density * state.vol
+    if supd:
+        state = dataclasses.replace(state, **supd)
+    if "hardening" in params:
+        cfg = dataclasses.replace(cfg, hardening=int(params["hardening"]))
+    return cfg, model, state
+
+
+def _broadcast(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a number or a tensor, kept in the autograd graph) as a
+    tensor of ``like``'s shape, dtype and device."""
+    if not isinstance(value, torch.Tensor):
+        value = torch.as_tensor(np.asarray(value, np.float32))
+    value = value.to(dtype=like.dtype, device=like.device)
+    return value.expand(like.shape).clone()
+
+
+def set_E_nu(model: MPMModel, E=None, nu=None, gamma=None, kappa=None,
+             finalize: bool = True) -> MPMModel:
+    """Set E, nu, gamma, kappa (a scalar broadcasts; an array is taken per
+    particle) and, with ``finalize``, recompute mu/lam from E/nu."""
+    upd = {name: _broadcast(val, getattr(model, name))
+           for name, val in (("E", E), ("nu", nu), ("gamma", gamma),
+                             ("kappa", kappa)) if val is not None}
+    model = dataclasses.replace(model, **upd)
+    return finalize_mu_lam(model) if finalize else model
+
+
+def set_parameters_in_box(model: MPMModel, state: MPMState, point, size,
+                          E=None, nu=None, density=None):
+    """Region-box material override: the particles inside the axis-aligned
+    box [point - size, point + size] get the given E / nu / density (mass
+    refreshed); mu/lam are recomputed when E or nu change."""
+    pt = torch.as_tensor(np.asarray(point, np.float32), device=state.x.device)
+    sz = torch.as_tensor(np.asarray(size, np.float32), device=state.x.device)
+    inside = torch.all(torch.abs(state.x - pt) < sz, dim=-1)
+    mupd = {name: torch.where(inside, _broadcast(val, cur), cur)
+            for name, val, cur in (("E", E, model.E), ("nu", nu, model.nu))
+            if val is not None}
+    if mupd:
+        model = finalize_mu_lam(dataclasses.replace(model, **mupd))
+    if density is not None:
+        dens = torch.where(inside, _broadcast(density, state.density),
+                           state.density)
+        state = dataclasses.replace(state, density=dens,
+                                    mass=dens * state.vol)
+    return model, state
+
+
+def reset_density(state: MPMState, density, update_mass: bool = True
+                  ) -> MPMState:
+    """Set every particle's density (a scalar broadcasts; a tensor stays
+    in the autograd graph) and, with ``update_mass``, mass = density *
+    vol."""
+    density = _broadcast(density, state.density)
+    mass = density * state.vol if update_mass else state.mass
+    return dataclasses.replace(state, density=density, mass=mass)
+
+
+def _unpack_cov(c):
+    return torch.stack([
+        torch.stack([c[:, 0], c[:, 1], c[:, 2]], -1),
+        torch.stack([c[:, 1], c[:, 3], c[:, 4]], -1),
+        torch.stack([c[:, 2], c[:, 4], c[:, 5]], -1),
+    ], -2)
+
+
+def _pack_cov(m):
+    return torch.stack([m[:, 0, 0], m[:, 0, 1], m[:, 0, 2], m[:, 1, 1],
+                        m[:, 1, 2], m[:, 2, 2]], -1)
+
+
+def export_particle_cov(state: MPMState, cfg: MPMStaticConfig):
+    """Render-time covariance of the non-vertex particles, packed (N, 6):
+    F_trial cov0 F_trial^T, with the identity for the elements (they have
+    no F)."""
+    nnv = cfg.n_no_vertices
+    c = state.cov[:nnv]
+    cov0 = _unpack_cov(c)
+    eye = torch.eye(3, dtype=c.dtype, device=c.device).expand(
+        cfg.n_elements, 3, 3)
+    f = torch.cat([eye, state.F_trial], 0)[:nnv]
+    return _pack_cov(f @ cov0 @ f.transpose(-1, -2))
+
+
+def update_cov(state: MPMState, cfg: MPMStaticConfig, grad_v, dt):
+    """Advect the packed covariance with the velocity gradient grad_v
+    (P, 3, 3): cov + dt (grad_v cov + cov grad_v^T).  Returns the new
+    packed (E+T, 6) array."""
+    nnv = cfg.n_no_vertices
+    cov_n = _unpack_cov(state.cov)
+    gv = grad_v[:nnv]
+    cov_np1 = cov_n + dt * (gv @ cov_n + cov_n @ gv.transpose(-1, -2))
+    return _pack_cov(cov_np1)

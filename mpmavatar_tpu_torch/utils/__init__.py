@@ -1,1 +1,1 @@
-"""Host-side helpers of the port (training losses)."""
+"""Host-side helpers of the port (training losses, schedules)."""

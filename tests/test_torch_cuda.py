@@ -9,6 +9,7 @@ JAX nor the JAX package, so it runs where only PyTorch is installed:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +28,7 @@ from mpmavatar_tpu_torch.data import OptimizationParams
 from mpmavatar_tpu_torch.render import bench_render
 from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene
 from mpmavatar_tpu_torch.train import appearance as tapp
-from mpmavatar_tpu_torch.train import bench_appearance
+from mpmavatar_tpu_torch.train import bench_appearance, bench_material
 
 pytestmark = pytest.mark.cuda
 
@@ -234,7 +235,8 @@ def test_p2g_kernel_matches_plain_in_every_particle_order(dev, order):
 
 # the five kernels with a backward, at small shapes: (wrapper, plain
 # version, inputs, differentiable input indices)
-GRAD_KERNELS = ("cloth_stress", "sand_stress", "p2g", "g2p", "grid_pipeline")
+GRAD_KERNELS = ("cloth_stress", "sand_stress", "p2g", "g2p", "grid_pipeline",
+                "splat")
 
 
 def _grad_case(dev, kernel):
@@ -253,6 +255,13 @@ def _grad_case(dev, kernel):
         keep = torch.arange(len(args[0]), device=dev) != len(args[0]) // 4
         return (kstress.sand_stress, kstress.sand_stress_plain,
                 [a[keep] for a in args[:5]] + args[5:], (0, 1, 3, 4, 5))
+    if kernel == "splat":
+        # the mover's shape: joint points (CH = 3), some dropped by the
+        # bounds check
+        pts = _splat_points(dev, n=200, G=cfg.n_grid)
+        return (lambda *a: ksplat.splat(*a, cfg.n_grid, cfg.inv_dx),
+                lambda *a: ksplat.splat_plain(*a, cfg.n_grid, cfg.inv_dx),
+                [pts, rnd(len(pts), 3)], (0, 1))
     grid = (cfg.n_grid, cfg.inv_dx, cfg.dx)
     if kernel == "p2g":
         return (lambda *a: ktr.p2g(*a, *grid),
@@ -352,6 +361,44 @@ def test_substep_gradient_on_the_card_matches_the_cpu(dev):
         assert _rel_err(a.cpu(), b) < 1e-3
 
 
+def test_material_train_step_on_the_card_matches_the_cpu(dev):
+    """One material train step of a small hanging cloth (pinned top row
+    turning about the vertical axis, rest shape 10% shorter in y), 2
+    frames x 10 substeps at dt = 1e-4: K1, K2, K5, K3 three times per
+    substep (forward, the frame's recompute, the substep's recompute) and
+    K4 six; the loss, d/d(D, E, H) and the stepped parameters against the
+    same step on the CPU."""
+    verts, faces = bench_material.hanging_cloth(12, 12)
+    ang = 2.0 * np.arange(3) / 1000.0
+    x, z = verts[:, 0] - 1.0, verts[:, 2] - 1.0
+    train = [verts.copy() for _ in ang]
+    for frame, a in zip(train, ang):
+        frame[:, 0] = 1.0 + x * np.cos(a) + z * np.sin(a)
+        frame[:, 2] = 1.0 - x * np.sin(a) + z * np.cos(a)
+    first = verts * np.float32([1.0, 0.9, 1.0])
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        tr, *_ = bench_material.make_trainer(
+            12, 12, 32, 10, 2, 10, train_verts=np.stack(train), fps=1000.0,
+            first_frame_verts=first, device=device)
+        loss = tr.rollout_loss(tr.params)
+        grads = torch.autograd.grad(loss, [tr.params[k] for k in "DEH"])
+        _build.reset_launch_counts()
+        step_loss, params = tr.train_one_step()
+        if device.type == "cuda":
+            assert _build.launch_counts() == {
+                "cloth_stress": 60, "p2g": 60, "grid_pipeline": 60,
+                "g2p": 60, "splat": 120}
+        out[device.type] = (float(loss.detach()), grads, step_loss, params)
+    (la, ga, sa, pa), (lb, gb, sb, pb) = out["cuda"], out["cpu"]
+    assert abs(la - lb) <= 1e-5 * abs(lb) and abs(sa - sb) <= 1e-5 * abs(sb)
+    for a, b in zip(ga, gb):
+        assert float(b) != 0.0
+        assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b))
+    for k in "DEH":
+        assert abs(pa[k] - pb[k]) <= 1e-4 * abs(pb[k])
+
+
 def _splat_points(dev, n=500, G=32, seed=0):
     """Random points with some at base G - 3 and some below 0."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -366,8 +413,14 @@ def _splat_points(dev, n=500, G=32, seed=0):
 
 @pytest.mark.parametrize("ch", [3, 6])
 @pytest.mark.parametrize("bounds_check", [True, False])
-def test_splat_kernel_matches_plain(dev, ch, bounds_check):
-    G = 32
+@pytest.mark.parametrize("G", [32, 200])
+def test_splat_kernel_matches_plain(dev, ch, bounds_check, G):
+    """At G = 200 inv_dx (100) is not a power of two, so x * inv_dx
+    rounds: the kernel must round it as the plain version does, before
+    the floor and the subtraction.  A multiply contracted into them moves
+    fx by up to half an ulp of x * inv_dx, which each cell's weight
+    shows relative to itself (up to ~1e-2 where fx - 0.5 is small); the
+    plain version's own rounding stays within a few ulps."""
     pts = _splat_points(dev, G=G)
     vals = torch.randn((pts.shape[0], ch), device=dev)
     before = _build.launch_counts().get(ksplat.KERNEL, 0)
@@ -376,6 +429,9 @@ def test_splat_kernel_matches_plain(dev, ch, bounds_check):
     ref = ksplat.splat_plain(pts, vals, G, G / 2.0, bounds_check)
     for a, b in zip(out, ref):
         assert _rel_err(a, b) < 1e-5
+    w, w_ref = out[1], ref[1]
+    covered = w_ref > 1e-20
+    assert float(((w - w_ref).abs() / w_ref)[covered].max()) < 1e-5
 
 
 def _sand_set(dev, t=2000, seed=0):

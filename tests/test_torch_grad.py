@@ -1,5 +1,5 @@
-"""Gradients through the port's substep kernels (K1, K2, K3, K5, K8)
-against the JAX package, on the CPU.
+"""Gradients through the port's substep kernels (K1, K2, K3, K4, K5,
+K8) against the JAX package, on the CPU.
 
 - Per kernel: autograd over the plain version (what the card's backward
   computes, ops/_autograd.py) against ``jax.vjp`` of the JAX entry point,
@@ -13,8 +13,9 @@ against the JAX package, on the CPU.
   wrapper's route through it, on CPU tensors that report themselves as
   CUDA tensors (the launch is recorded, not run): its outputs carry a
   ``grad_fn`` and its gradient is exactly the plain version's.
-- K4 has no backward: the mover splat raises on the card under grad, and
-  the collider splat's inputs are detached.
+- K4: the mover splat's VJP against ``jax.vjp`` of ``rasterize_to_grid``,
+  its card route through the Function, and the collider splat's inputs
+  detached.
 
 Every comparison is max |port - jax| over max |jax| per input, with the
 tolerance stated beside it.
@@ -500,10 +501,11 @@ def test_card_route_differentiates_through_the_plain_version(kernel,
     assert all(o.grad_fn is None for o in outs)
 
 
-def test_mover_splat_raises_under_grad_on_the_card(monkeypatch):
-    """K4 has no backward: the mover splats the joint particles' positions
-    state.x, so on the card under grad with x requiring grad it raises,
-    naming the mover, and launches nothing; with x detached it launches."""
+def test_mover_splat_differentiates_on_the_card(monkeypatch):
+    """The mover splats the joint particles' positions state.x: on the
+    card under grad, with x requiring grad, K4 launches once inside the
+    autograd Function, and the gradient w.r.t. x is exactly autograd over
+    the plain version's; with x detached it launches directly."""
     cfg, state, model = __graft_entry__._build_cloth_scene(nx=4, ny=4,
                                                            n_grid=16)
     cfg = dataclasses.replace(cfg, num_joint_v=3, num_joint_f=2)
@@ -513,14 +515,46 @@ def test_mover_splat_raises_under_grad_on_the_card(monkeypatch):
                         lambda name, *a: launched.append(name))
     monkeypatch.setattr(_build, "stream", lambda device: 0)
     x = _on_card(tst.x, requires_grad=True)
-    st = dataclasses.replace(tst, x=x)
-    joints = (_on_card(torch.zeros((3, 3))), _on_card(torch.zeros((2, 3))))
-    with pytest.raises(RuntimeError, match="mover"):
-        tstep.mover_fields(tcfg, st, *joints)
-    assert launched == []
-    tstep.mover_fields(tcfg, dataclasses.replace(tst, x=x.detach()),
-                       *joints)
+    rng = np.random.default_rng(8)
+    jv, jf = (rng.normal(size=(n, 3)).astype(np.float32) for n in (3, 2))
+    outs = tstep.mover_fields(tcfg, dataclasses.replace(tst, x=x),
+                              _on_card(jv), _on_card(jf))
     assert launched == [tsplat.KERNEL]
+    assert all(o.grad_fn is not None for o in outs)
+    cots = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i))
+            for i, o in enumerate(outs)]
+    (got,) = torch.autograd.grad(outs, [x], cots)
+    x_ref = t(tst.x).requires_grad_(True)
+    ref_outs = tstep.mover_fields(tcfg, dataclasses.replace(tst, x=x_ref),
+                                  t(jv), t(jf))
+    (ref,) = torch.autograd.grad(ref_outs, [x_ref], cots)
+    assert torch.equal(got, ref) and float(ref.abs().max()) > 0
+    tstep.mover_fields(tcfg, dataclasses.replace(tst, x=x.detach()),
+                       _on_card(jv), _on_card(jf))
+    assert launched == [tsplat.KERNEL, tsplat.KERNEL]
+
+
+def test_splat_vjp_matches_jax():
+    """The plain splat's VJP w.r.t. points and values (the card's K4
+    backward) against ``jax.vjp`` of the JAX package's
+    ``rasterize_to_grid``, which is what the JAX mover differentiates;
+    points off the bounds check's edges."""
+    cfg = jtypes.MPMStaticConfig(n_elements=0, n_traditional=40,
+                                 n_vertices=0, n_grid=16)
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(0.3, 1.6, (40, 3)).astype(np.float32)
+    vals = rng.normal(size=(40, 3)).astype(np.float32)
+    g3 = cfg.n_grid ** 3
+    args = [pts, vals]
+    cots = _cotangents([np.zeros((g3, 3)), np.zeros((g3,))], 12)
+    got = _port_vjp(lambda p, v: tsplat.splat_plain(p, v, cfg.n_grid,
+                                                    cfg.inv_dx),
+                    args, (0, 1), cots)
+    ref = _jax_vjp(lambda p, v: jstep.rasterize_to_grid(cfg, p, v, g3),
+                   [jnp.asarray(a) for a in args], (0, 1), cots)
+    for name, a, b in zip(("points", "values"), got, ref):
+        assert float(np.abs(np.asarray(b)).max()) > 0, name
+        assert _rel(a, b) <= KERNEL_GRAD_TOL, name
 
 
 def test_collider_splat_inputs_are_detached(monkeypatch):

@@ -37,7 +37,9 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      tile, or straight into or from the grid); the backward of K1, K2,
      K5, K3 and K8
      (autograd over the plain version) timed at the same shapes, and K4's
-     at the material trainer's mover (its 183 pinned points on 200^3);
+     at the material trainer's mover (its 183 pinned points on 200^3); K4
+     also at the posed body's 20,736 faces on 128^3 (phase 10's collider)
+     and at a pole-free 20,480-face icosphere on the same torso;
   5. 10 substeps on the kernel path against 10 on the plain path (CPU)
      from the same perturbed states, for a few seeds:
      - the cloth drop, beside two sound plain runs an ulp apart and two
@@ -108,7 +110,28 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      parameters; simulate for 2 frames (finite, the cloth moves); d/d(D,
      E, H) over MAT_GRAD_SUBSTEPS substeps against the CPU plain path,
      beside a wrong path (the kernels' outputs detached) and the reading
-     with the mover's points detached.
+     with the mover's points detached; the same gradient with the body
+     sphere raised into the cloth and rising (contact: the collider must
+     move the gradient beyond the tolerance), against the CPU plain path
+     beside the same wrong path;
+ 10. the posed body (sim/pose_playback.py at full width): a synthetic
+     SMPL-X archive at SMPL-X's widths (55 joints, 400 shape and 486 pose
+     directions, a closed 10,476-vertex, 20,736-face torso under the
+     cloth) written as an npz and loaded by load_smplx_npz; three poses
+     (the root turning, trans rising, seeded body-pose offsets), one per
+     frame of 100 substeps; the bench cloth re-posed through them by
+     deform_tracked_to_poses (k = 10), its first 256 vertices and 128
+     faces pinned to the re-posed velocities, the posed body as the
+     moving collider: smplx_forward's vertices, joints and transforms and
+     the re-posed cloth on the card against the CPU (KNN ties counted),
+     the posing time and the KNN's share of it; 2 frames x 100 substeps
+     with the launch counters reset just before and read just after (K1,
+     K2, K5, K3 once and K4 twice per substep), finite after each frame,
+     the body moving, K5's mesh branch changing cells, a profile of 20
+     more substeps and the peak memory; then the scene cut to a 48 x 48
+     cloth and 64^3 with the body at full width, 10 substeps on the kernel
+     path against the plain path on the CPU, beside two wrong paths (the
+     body held still; collider friction 0).
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -241,6 +264,24 @@ TRAIN_STEPS_M = 3
 FD_LOSS_TOL = 1e-6
 MAT_GRAD_GRID, MAT_GRAD_SUBSTEPS = 200, 3
 SIM_MOVE_MIN = 1e-4
+# C3, the gradient in contact: bench_material's sphere (its 32 x 32 UV
+# sphere of radius 0.22, wound inward, as the JAX bench's) raised into the
+# lower half of the hanging cloth and rising at 0.5 m/s, so that the cloth
+# inside it crosses its lower surface
+MAT_CONTACT_CENTER, MAT_CONTACT_V = (1.0, 0.95, 1.25), (0.0, 0.5, 0.0)
+MAT_CONTACT_R = 0.22
+
+# the posed body (phase 10): sim/pose_playback's scene at full width, one
+# pose per frame; the avatar on the card against the CPU as max |a - b| /
+# max |cpu| (float32 sums in other orders, and the blended 4x4s inverted
+# by another LU), the CPU re-posing every POSE_CPU_EVERY-th cloth vertex;
+# a KNN set may differ only where the CPU's k-th and (k+1)-th squared
+# distances lie within KNN_TIE_REL of each other; the body must move by
+# POSE_MOVE_MIN between poses; the cut scene for the kernel path against
+# the plain path keeps the body at full width
+POSE_FRAMES, POSE_CPU_EVERY = 2, 16
+AVATAR_REL_TOL, KNN_TIE_REL, POSE_MOVE_MIN = 1e-5, 1e-5, 1e-3
+POSE_CUT = dict(nx=48, grid=64)
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -346,6 +387,37 @@ def bound(n_bytes: float, n_flops: float):
     if t_bytes >= t_ops:
         return 1e3 * t_bytes, "bytes"
     return 1e3 * t_ops, "operations"
+
+
+def icosphere(levels: int):
+    """A unit icosahedron whose triangles are split into 4, ``levels``
+    times, the new vertices pushed onto the sphere: 10 * 4^levels + 2
+    vertices and 20 * 4^levels faces, wound outward, of near-equal area
+    and with no pole.  Returns (verts (V, 3) float32, faces (F, 3))."""
+    import numpy as np
+    t = (1.0 + 5 ** 0.5) / 2.0
+    verts = np.asarray([(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
+                        (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
+                        (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)])
+    faces = np.asarray([(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10),
+                        (0, 10, 11), (1, 5, 9), (5, 11, 4), (11, 10, 2),
+                        (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
+                        (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5),
+                        (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)])
+    unit = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)
+    verts = unit(verts)
+    for _ in range(levels):
+        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]])
+        ends, edge = np.unique(np.sort(edges, 1), axis=0,
+                               return_inverse=True)
+        ab, bc, ca = len(verts) + edge.reshape(3, -1)
+        verts = np.concatenate([verts, unit(verts[ends[:, 0]]
+                                            + verts[ends[:, 1]])])
+        a, b, c = faces.T
+        faces = np.concatenate([np.stack(f, -1) for f in (
+            (a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))])
+    return verts.astype(np.float32), faces
 
 
 def graph_floor_ms(dev) -> float:
@@ -457,25 +529,30 @@ def random_order(cfg):
                                            generator=g_perm)])
 
 
-def drive(name, solver, state, model, scene, frames, substeps, expect):
+def drive(name, solver, state, model, scene, frames, substeps, expect,
+          stats=None):
     """One path: ``frames`` x ``substeps`` substeps with the launch
     counters reset just before and read just after; each kernel in
     ``expect`` (name -> launches per substep) must have launched that
-    many times and no other kernel at all.  Then a profile of
-    PROFILE_SUBSTEPS more.  Returns (final state, time, launches, steady
-    ms/substep)."""
+    many times and no other kernel at all; the state must be finite after
+    each frame.  ``scene`` is the frame inputs, or a function of the frame
+    index that gives them.  Then a profile of PROFILE_SUBSTEPS more (with
+    the last frame's inputs), whose device busy ms, kernels per substep and
+    idle share go into ``stats`` when given.  Returns (final state, time,
+    launches, steady ms/substep)."""
     import torch
     from mpmavatar_tpu_torch.ops import _build
+    inputs = scene if callable(scene) else (lambda f: scene)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t, frame_s = 0.0, []
-    for _ in range(frames):
+    for f in range(frames):
         t_f = time.perf_counter()
-        state, t = solver.frame(state, model, DT, substeps, t, **scene)
+        state, t = solver.frame(state, model, DT, substeps, t, **inputs(f))
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t_f)
+        solver.check_finite(state, f"{name}, frame {f}")
     launches = _build.launch_counts()
-    solver.check_finite(state, name)
     n_sub = frames * substeps
     want = {k: per * n_sub for k, per in expect.items()}
     if launches != want:
@@ -486,7 +563,8 @@ def drive(name, solver, state, model, scene, frames, substeps, expect):
           f"{ms_sub:.4f} ms/substep = {1e3 / ms_sub:.1f} substeps/s")
 
     busy_s, prof_wall, rows = profile_device(
-        lambda: solver.frame(state, model, DT, PROFILE_SUBSTEPS, t, **scene))
+        lambda: solver.frame(state, model, DT, PROFILE_SUBSTEPS, t,
+                             **inputs(frames - 1)))
     n = PROFILE_SUBSTEPS
     table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
                       for key, us, calls in rows)
@@ -496,16 +574,44 @@ def drive(name, solver, state, model, scene, frames, substeps, expect):
               "device busy share not measured")
     else:
         idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
+        kernels = sum(r[2] for r in rows) / n
         print(f"{name} profile of {n} substeps: device busy "
               f"{1e3 * busy_s / n:.4f} ms/substep in "
-              f"{sum(r[2] for r in rows) / n:.1f} kernels/substep, "
+              f"{kernels:.1f} kernels/substep, "
               f"{1e3 * prof_wall / n:.4f} ms/substep profiled wall; "
               f"against the unprofiled steady frame the device is idle "
               f"{idle:.1f}% of the time")
+        if stats is not None:
+            stats.update(busy_ms=1e3 * busy_s / n, kernels=kernels,
+                         idle_pct=idle)
     for key, us, calls in rows[:12]:
         print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
               f"{key[:90]}")
     return state, t, launches, ms_sub
+
+
+def mesh_branch_cells(solver, state, model, scene, t) -> tuple:
+    """One more grid phase from ``state``, K5 with and without its mesh
+    fields: (the grid cells whose velocity the mesh branch changed, the
+    cells the collider splat covers)."""
+    from mpmavatar_tpu_torch.core import stepping
+    from mpmavatar_tpu_torch.ops import grid_pipeline as gp
+    cfg = solver.cfg
+    col = solver.colliders.mesh_colliders[0]
+    post = solver.colliders.grid_post
+    nd, nf, ny, stress, vf = stepping.compute_stress(cfg, state, model, DT)
+    st1 = dataclasses.replace(state, d=nd, F=nf, yield_stress=ny)
+    gv_in, gm = stepping.p2g(cfg, st1, model, stress, vf, DT)
+    acc, mw = stepping.mesh_collider_fields(cfg, col, scene["mesh_x"],
+                                            scene["mesh_v"])
+    surf = gp.pack_surface_params(post)
+    scal = (model.gravity, model.grid_v_damping_scale)
+    with_mesh = gp.make_grid_pipeline(cfg, post, True, False)(
+        gv_in, gm, acc, mw, None, None, *scal, col.friction, t, DT, surf)
+    no_mesh = gp.make_grid_pipeline(cfg, post, False, False)(
+        gv_in, gm, None, None, None, None, *scal, None, t, DT, surf)
+    return (int((with_mesh != no_mesh).any(dim=1).sum()),
+            int((mw > 1e-15).sum()))
 
 
 def sphere_depth(x, center, r):
@@ -1298,13 +1404,17 @@ def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
     return ms
 
 
-def material_trainer(dev, grid, frames, substeps, seed=0):
+def material_trainer(dev, grid, frames, substeps, seed=0, contact=False):
     """bench_material.make_trainer at full width on ``dev``: the hanging
     cloth turning at MAT_OMEGA (seeded noise of MAT_NOISE on the tracked
-    free vertices), its rest shape 10% shorter in y, dt = 1e-4.  Returns
-    (trainer, tracked trajectory (F+1, V, 3), body sequence)."""
+    free vertices), its rest shape 10% shorter in y, dt = 1e-4.  With
+    ``contact`` the trainer's body sphere is raised to MAT_CONTACT_CENTER
+    and rises at MAT_CONTACT_V.  Returns (trainer, tracked trajectory
+    (F+1, V, 3), body sequence)."""
     import numpy as np
+    from mpmavatar_tpu_torch.core.types import build_body_sphere
     from mpmavatar_tpu_torch.train import bench_material
+    from mpmavatar_tpu_torch.train.material import MaterialTrainer
     fps = 1.0 / (DT * substeps)
     verts, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
     x, z = verts[:, 0] - 1.0, verts[:, 2] - 1.0
@@ -1317,10 +1427,19 @@ def material_trainer(dev, grid, frames, substeps, seed=0):
     train[1:, MAT_NX:] += rng.normal(0, MAT_NOISE, train[1:, MAT_NX:].shape
                                      ).astype(np.float32)
     first = verts * np.float32([1.0, 0.9, 1.0])
-    tr, _, _, body, _ = bench_material.make_trainer(
+    tr, _, faces, body_seq, body_faces = bench_material.make_trainer(
         MAT_NX, MAT_NX, grid, substeps, frames, iterations=10,
         train_verts=train, fps=fps, first_frame_verts=first, device=dev)
-    return tr, train, body
+    if contact:
+        bv, _ = build_body_sphere(n_theta=32, n_phi=32,
+                                  center=MAT_CONTACT_CENTER, r=MAT_CONTACT_R)
+        body_seq = np.stack([bv + np.float32(i / fps)
+                             * np.float32(MAT_CONTACT_V)
+                             for i in range(frames + 1)])
+        tr = MaterialTrainer(tr.cfg, faces, first, train, body_seq,
+                             body_faces, num_joint_v=MAT_NX, num_joint_f=0,
+                             device=dev)
+    return tr, train, body_seq
 
 
 def material_path(dev, per_sub) -> tuple:
@@ -1513,8 +1632,215 @@ def material_path(dev, per_sub) -> tuple:
     if not min(bad) > SUBSTEP_GRAD_TOL:
         raise AssertionError("the gradient limit does not separate the wrong "
                              "path")
+
+    # C3: the same gradient with the body sphere in contact, raised into
+    # the hanging cloth and rising, so that K5's mesh projection and its
+    # twin backward act on it
+    def with_contact(device):
+        return material_trainer(device, MAT_GRAD_GRID, 1, MAT_GRAD_SUBSTEPS,
+                                contact=True)[0]
+
+    t_c3 = time.perf_counter()
+    g_card_c = grads(with_contact(dev))
+    t0 = time.perf_counter()
+    g_cpu_c = grads(with_contact("cpu"))
+    cpu_c_s = time.perf_counter() - t0
+    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    try:
+        g_wrong_c = grads(with_contact(dev))
+    finally:
+        _autograd.call = real_call
+    sound_c, bad_c = rel(g_card_c, g_cpu_c), rel(g_wrong_c, g_cpu_c)
+    contact_c = rel(g_cpu_c, g_cpu)
+    print(f"material gradient in contact (C3; the body sphere at "
+          f"{MAT_CONTACT_CENTER}, r {MAT_CONTACT_R}, rising at "
+          f"{MAT_CONTACT_V} m/s; {MAT_GRAD_SUBSTEPS} substeps at "
+          f"{MAT_GRAD_GRID}^3; the CPU side {cpu_c_s:.1f} s): d/dD, d/dE, "
+          f"d/dH card " + ", ".join(f"{g:.6e}" for g in g_card_c) + ", cpu "
+          + ", ".join(f"{g:.6e}" for g in g_cpu_c) + "; rel err "
+          + ", ".join(f"{e:.3e}" for e in sound_c)
+          + f" (tol {SUBSTEP_GRAD_TOL:.0e}); wrong path (the kernels' "
+          f"outputs detached) " + ", ".join(f"{e:.3e}" for e in bad_c)
+          + "; the contact moved the CPU gradient by "
+          + ", ".join(f"{e:.3e}" for e in contact_c)
+          + f"; these readings took {time.perf_counter() - t_c3:.1f} s")
+    if not min(contact_c) > SUBSTEP_GRAD_TOL:
+        raise AssertionError("C3: the contact does not move the material "
+                             "gradient beyond the tolerance")
+    if not max(sound_c) <= SUBSTEP_GRAD_TOL:
+        raise AssertionError("C3: the material gradient in contact disagrees "
+                             "with the plain path")
+    if not min(bad_c) > SUBSTEP_GRAD_TOL:
+        raise AssertionError("C3: the gradient limit does not separate the "
+                             "wrong path")
     per_step = {k: v // TRAIN_STEPS_M for k, v in launches.items()}
     return med, per_step
+
+
+def timed_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` over ``reps`` calls, each ending in
+    a synchronize."""
+    import torch
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(runs)
+
+
+def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
+    """Phase 10, the posed body: ``scene`` is sim/pose_playback's scene on
+    the card, posed by ``body``; ``body_cpu`` is the same archive on the
+    CPU.  Returns (steady ms per substep, launches)."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.avatar import (deform_tracked_to_poses, lbs,
+                                            smplx_forward)
+    from mpmavatar_tpu_torch.core.types import build_cloth
+    from mpmavatar_tpu_torch.sim import pose_playback as pp
+
+    t_phase = time.perf_counter()
+    n_verts, n_faces = body.v_template.shape[0], body.faces.shape[0]
+    parents = body.parents
+    print(f"posed body: the synthetic SMPL-X archive, {n_verts} vertices, "
+          f"{n_faces} faces, {len(parents)} joints, "
+          f"{body.shapedirs.shape[-1]} + {body.expr_dirs.shape[-1]} shape "
+          f"directions, {body.posedirs.shape[0]} pose directions; "
+          f"{scene.solver.cfg.n_particles} particles, {GRID}^3, "
+          f"{POSE_FRAMES} frames x {SUBSTEPS} substeps, one pose per frame")
+    if not (n_verts == 10_476 and n_faces == 20_736 and len(parents) == 55
+            and parents[0] == -1
+            and all(0 <= p < i for i, p in enumerate(parents) if i)
+            and body.shapedirs.shape[-1] == 300
+            and body.expr_dirs.shape[-1] == 100
+            and body.posedirs.shape[0] == 486):
+        raise AssertionError("posed body: not SMPL-X's widths")
+
+    first, poses = pp.make_poses()
+    on = lambda d, device: {k: torch.as_tensor(v, device=device)
+                            for k, v in d.items()}
+    first_d, poses_d = on(first, dev), on(poses, dev)
+    first_c, poses_c = on(first, "cpu"), on(poses, "cpu")
+    cloth_c = torch.as_tensor(build_cloth(NX, NX, y0=pp.CLOTH_Y)[0])
+    cloth_d = cloth_c.to(dev)
+    fps = 1.0 / (SUBSTEPS * DT)
+
+    # posing the sequence on the card, and the KNN's share of it
+    pose_ms = timed_ms(lambda: pp.prepare_pose_playback(
+        body, first_d, poses_d, cloth_d, fps=fps))
+    body0_d = smplx_forward(body, first_d).vertices[0]
+    knn_ms = timed_ms(lambda: lbs.knn(cloth_d, body0_d, pp.KNN_K))
+
+    # the avatar on the card against the CPU
+    out_d, out_c = smplx_forward(body, poses_d), smplx_forward(body_cpu,
+                                                               poses_c)
+    errs = {f: rel_err([getattr(out_d, f).cpu()], [getattr(out_c, f)])[1]
+            for f in ("vertices", "joints", "transform_mat")}
+    sub = slice(None, None, POSE_CPU_EVERY)
+    re_d = scene.playback["verts"][:, sub].cpu()
+    re_c = deform_tracked_to_poses(body_cpu, cloth_c[sub], first_c, poses_c,
+                                   k=pp.KNN_K)[0]
+    # the KNN sets: a set may differ only where the k-th and (k+1)-th
+    # distances tie within rounding
+    body0_c = smplx_forward(body_cpu, first_c).vertices[0]
+    idx_d = lbs.knn(cloth_d[sub], body0_d, pp.KNN_K)[1].cpu()
+    d2_c, idx_c = lbs.knn(cloth_c[sub], body0_c, pp.KNN_K + 1)
+    differ = (idx_d.sort(1).values != idx_c[:, :pp.KNN_K].sort(1).values
+              ).any(1)
+    k_th, next_d = d2_c[:, pp.KNN_K - 1], d2_c[:, pp.KNN_K]
+    tie = (next_d - k_th) <= KNN_TIE_REL * next_d
+    untied = int((differ & ~tie).sum())
+    errs["re-posed cloth"] = rel_err([re_d[:, ~differ]], [re_c[:, ~differ]])[1]
+    print(f"posed body, card against CPU (max |a - b| / max |cpu|, tol "
+          f"{AVATAR_REL_TOL:.0e}): " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (the re-posed cloth on every {POSE_CPU_EVERY}th of its "
+          f"{len(cloth_c)} vertices: {len(re_c[0])}); KNN sets that differ: "
+          f"{int(differ.sum())}, of them not at a k-th/(k+1)-th tie "
+          f"{untied}")
+    if untied or not max(errs.values()) <= AVATAR_REL_TOL:
+        raise AssertionError("posed body: the avatar on the card disagrees "
+                             "with the CPU")
+
+    # the frames through the kernels
+    body_move = float((scene.playback["smplx"][1:]
+                       - scene.playback["smplx"][:-1]).abs().max())
+    speed = float(scene.playback["smplx_velo"].norm(dim=-1).max())
+    stats = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, t, launches, ms_sub = drive("posed_body", scene.solver,
+                                       scene.state, scene.model, scene.inputs,
+                                       POSE_FRAMES, SUBSTEPS, per_sub, stats)
+    peak = torch.cuda.max_memory_allocated()
+    changed, covered = mesh_branch_cells(scene.solver, state, scene.model,
+                                         scene.inputs(POSE_FRAMES - 1), t)
+    print(f"posed body: the body moved up to {body_move:.4e} between poses "
+          f"(surface speed up to {speed:.3f} m/s); K5's mesh branch changed "
+          f"the velocity of {changed} grid cells ({covered} covered by the "
+          f"collider splat)")
+    if not body_move >= POSE_MOVE_MIN or changed <= 0:
+        raise AssertionError("posed body: the body did not move, or no "
+                             "contact")
+
+    # the cut scene: COMPARE_SUBSTEPS substeps on the kernel path against
+    # the plain path on the CPU, the CPU fed the card's posed sequence;
+    # wrong paths: the body held still, the collider's friction 0
+    cut = pp.build(device=dev, body=body, **POSE_CUT)
+    cpu_scenes = {"plain": pp.build(device="cpu", body=body_cpu, **POSE_CUT),
+                  "friction 0": pp.build(device="cpu", body=body_cpu,
+                                         friction=0.0, **POSE_CUT)}
+    for s_c in cpu_scenes.values():
+        s_c.playback = {k: v.cpu() for k, v in cut.playback.items()}
+    plain, fric0 = cpu_scenes["plain"], cpu_scenes["friction 0"]
+    still = dict(plain.inputs(0),
+                 mesh_v=torch.zeros_like(plain.inputs(0)["mesh_v"]))
+    wrong = {"body held still": (plain, still),
+             "friction 0": (fric0, fric0.inputs(0))}
+    readings = {name: {"x": [], "v": []} for name in ("kernel", *wrong)}
+    for seed in PATH_SEEDS:
+        g = torch.Generator(device=dev).manual_seed(3000 + seed)
+        a0 = dataclasses.replace(cut.state, v=cut.state.v + 0.05 * torch.randn(
+            cut.state.v.shape, generator=g, device=dev))
+        outs = {"kernel": cut.solver.frame(a0, cut.model, DT,
+                                           COMPARE_SUBSTEPS, 0.0,
+                                           **cut.inputs(0))[0]}
+        b = plain.solver.frame(a0.to("cpu"), plain.model, DT,
+                               COMPARE_SUBSTEPS, 0.0, **plain.inputs(0))[0]
+        for name, (s_c, inputs) in wrong.items():
+            outs[name] = s_c.solver.frame(a0.to("cpu"), s_c.model, DT,
+                                          COMPARE_SUBSTEPS, 0.0, **inputs)[0]
+        for name, o in outs.items():
+            for f in ("x", "v"):
+                readings[name][f].append(
+                    float((getattr(o, f).cpu() - getattr(b, f)).abs().max()))
+        print(f"posed body, cut scene ({POSE_CUT}), seed {seed}, "
+              f"{COMPARE_SUBSTEPS} substeps against the plain path: "
+              + "; ".join(f"{name}: x {r['x'][-1]:.3e}, v {r['v'][-1]:.3e}"
+                          for name, r in readings.items()))
+    for f, tol in PATH_ATOL.items():
+        if not max(readings["kernel"][f]) <= tol:
+            raise AssertionError(f"posed body: the kernel path disagrees "
+                                 f"with the plain path in {f}")
+    for name in wrong:
+        if not min(readings[name]["v"]) > PATH_ATOL["v"]:
+            raise AssertionError(f"posed body: the v limit does not "
+                                 f"separate the wrong path ({name})")
+    print(f"posed body on {smi}: posing the {pp.N_POSES} poses "
+          f"{pose_ms:.4f} ms (host clock, median of 3), of it the KNN "
+          f"{knn_ms:.4f} ms ({100 * knn_ms / pose_ms:.1f}%); steady "
+          f"{ms_sub:.4f} ms/substep; device busy "
+          f"{stats.get('busy_ms', float('nan')):.4f} ms/substep in "
+          f"{stats.get('kernels', float('nan')):.1f} kernels/substep, idle "
+          f"{stats.get('idle_pct', float('nan')):.1f}%; peak allocated "
+          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} GiB "
+          f"above the {base / 2 ** 30:.3f} GiB held before); phase 10 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return ms_sub, launches
 
 
 def main() -> int:
@@ -1642,26 +1968,7 @@ def main() -> int:
               f"sphere; cloth y range [{float(st_d.x[:, 1].min()):.4f}, "
               f"{float(st_d.x[:, 1].max()):.4f}]")
         if body:
-            # one more grid phase from the draped state, K5 with and
-            # without its mesh fields: the cells the mesh branch changed
-            col = s_d.colliders.mesh_colliders[0]
-            post = s_d.colliders.grid_post
-            nd, nf, ny, stress_d, vf = stepping.compute_stress(
-                s_d.cfg, st_d, m_d, DT)
-            st1 = dataclasses.replace(st_d, d=nd, F=nf, yield_stress=ny)
-            gv_in, gm = stepping.p2g(s_d.cfg, st1, m_d, stress_d, vf, DT)
-            acc, mw = stepping.mesh_collider_fields(
-                s_d.cfg, col, sc_d["mesh_x"], sc_d["mesh_v"])
-            surf = gp.pack_surface_params(post)
-            scal = (m_d.gravity, m_d.grid_v_damping_scale)
-            with_mesh = gp.make_grid_pipeline(s_d.cfg, post, True, False)(
-                gv_in, gm, acc, mw, None, None, *scal, col.friction, t_d,
-                DT, surf)
-            no_mesh = gp.make_grid_pipeline(s_d.cfg, post, False, False)(
-                gv_in, gm, None, None, None, None, *scal, None, t_d, DT,
-                surf)
-            changed = int((with_mesh != no_mesh).any(dim=1).sum())
-            covered = int((mw > 1e-15).sum())
+            changed, covered = mesh_branch_cells(s_d, st_d, m_d, sc_d, t_d)
             print(f"drape: K5's mesh branch changed the velocity of "
                   f"{changed} grid cells ({covered} cells covered by the "
                   f"collider splat)")
@@ -1672,6 +1979,13 @@ def main() -> int:
             f"drape depth {depth[True]:.5f} (limit {DRAPE_TOL:.5f}) does "
             f"not separate from the run without a collider "
             f"({depth[False]:.5f})")
+
+    # the posed body of phase 10, set up here: K4 runs at its shape in
+    # phase 4
+    from mpmavatar_tpu_torch.sim import pose_playback
+    body_p, body_p_cpu = (pose_playback.load_body(device=d)
+                          for d in (dev, "cpu"))
+    scene_p = pose_playback.build(NX, GRID, body=body_p, device=dev)
 
     # ---- 4. kernels against their plain versions -----------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1837,6 +2151,31 @@ def main() -> int:
                               joint_vals, GRID)
     splat_check("splat (collider faces, 250^3)", face_pts, face_vals,
                 GRID_B)
+    # the posed body's faces (phase 10) at its first pose
+    in_p = scene_p.inputs(0)
+    pose_pts, pose_vals = stepping.mesh_face_values(
+        scene_p.solver.colliders.mesh_colliders[0], in_p["mesh_x"],
+        in_p["mesh_v"])
+    splat_check(f"splat (the posed body's {len(pose_pts)} faces, "
+                f"{GRID}^3)", pose_pts, pose_vals, GRID)
+    # the same torso tessellated without poles (the UV sphere's pole rings
+    # pile hundreds of centroids into one cell; a real SMPL-X mesh has no
+    # such pole): a 5-times split icosahedron, 20,480 faces, stretched
+    # onto the posed body's ellipsoid and turning at 1 rad/s about the
+    # vertical axis (ROOT_TURN per frame)
+    from mpmavatar_tpu_torch.core.colliders import MeshCollider
+    ico_v, ico_f = icosphere(5)
+    ico_c = torch.tensor(pose_playback.BODY_CENTER, device=dev)
+    ico_x = torch.as_tensor(ico_v, device=dev) * torch.tensor(
+        pose_playback.BODY_RADII, device=dev) + ico_c
+    rel = ico_x - ico_c
+    ico_vel = torch.stack([rel[:, 2], torch.zeros_like(rel[:, 0]),
+                           -rel[:, 0]], -1)
+    ico_pts, ico_vals = stepping.mesh_face_values(
+        MeshCollider(faces=torch.as_tensor(ico_f, device=dev),
+                     friction=torch.tensor(0.5, device=dev)), ico_x, ico_vel)
+    splat_check(f"splat (a pole-free {len(ico_pts)}-face icosphere torso, "
+                f"{GRID}^3)", ico_pts, ico_vals, GRID)
     # the material trainer's mover (phase 9): its pinned row on 200^3,
     # turning at MAT_OMEGA about the vertical axis
     import numpy as np
@@ -2205,12 +2544,17 @@ def main() -> int:
     # ---- 9. the material train step -------------------------------------
     mat_ms, mat_launches = material_path(dev, per_sub_a)
 
+    # ---- 10. the posed body ---------------------------------------------
+    pose_ms, pose_launches = posed_body_path(dev, smi, scene_p, body_p,
+                                             body_p_cpu, per_sub_a)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
           f"ms/substep; render "
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
           + f" ms/frame; train step {train_ms:.4f} ms; material train step "
-          f"{mat_ms:.4f} ms on {smi}; chip_smoke ran "
+          f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep on {smi}; "
+          f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
         entry["launches_by_path"] = {
@@ -2220,7 +2564,8 @@ def main() -> int:
             **{f"render_{name}": counts.get(entry["name"], 0)
                for name, (_, counts) in render.items()},
             "train_step": train_launches.get(entry["name"], 0),
-            "material_train_step": mat_launches.get(entry["name"], 0)}
+            "material_train_step": mat_launches.get(entry["name"], 0),
+            "posed_body": pose_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

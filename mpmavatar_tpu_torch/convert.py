@@ -15,8 +15,9 @@ densification statistics (``to_numpy`` takes them back), and
 ``float_grads_to_numpy`` the train step's gradients, nested as the JAX
 package's AvatarParams pytree.  ``material_params_from_numpy`` sets a
 material trainer's D, E, H and its Adam state (optax's ``mu``, ``nu``,
-``count``).  Tests use these so both packages start from identical
-data.
+``count``).  ``smplx_model_from_numpy`` and ``vposer_from_numpy`` carry
+the avatar's SMPL-X model and VPoser decoder.  Tests use these so both
+packages start from identical data.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .avatar.smplx import SMPLXModel
+from .avatar.vposer import VPoserDecoder
 from .core.colliders import MeshCollider
 from .core.types import MPMModel, MPMState
 from .render.avatar_model import AvatarParams, MeshAvatar
@@ -152,3 +155,34 @@ def material_params_from_numpy(trainer, params: dict, mu=None, nu=None,
                                        device=p.device).clone(),
             "exp_avg_sq": torch.as_tensor(np.float32(nu[name]),
                                           device=p.device).clone()}
+
+
+def smplx_model_from_numpy(arrays: dict, parents, device=None) -> SMPLXModel:
+    """SMPLXModel from its array fields by name (faces as int32, the rest
+    float32; a missing or None entry stays None) and ``parents``."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(SMPLXModel):
+        if f.name == "parents" or arrays.get(f.name) is None:
+            continue
+        dtype = torch.int32 if f.name == "faces" else torch.float32
+        kw[f.name] = torch.tensor(np.asarray(arrays[f.name]),
+                                  device=device).to(dtype)
+    return SMPLXModel(parents=tuple(int(p) for p in parents), **kw)
+
+
+def vposer_from_numpy(params: dict, device=None) -> VPoserDecoder:
+    """The decoder of a JAX VPoser parameter dict ({"fc1", "fc2", "out"}
+    each {"w" (in, out), "b" (out,)}): ``nn.Linear`` keeps w as
+    (out, in)."""
+    w = {k: np.asarray(params[k]["w"], np.float32)
+         for k in ("fc1", "fc2", "out")}
+    dec = VPoserDecoder(num_neurons=w["fc1"].shape[1],
+                        latent_dim=w["fc1"].shape[0],
+                        n_joints=w["out"].shape[1] // 6)
+    dec.load_state_dict({
+        f"{k}.{p}": torch.tensor(
+            w[k].T if p == "weight"
+            else np.asarray(params[k]["b"], np.float32))
+        for k in w for p in ("weight", "bias")})
+    return dec.to(resolve_device(device))

@@ -1140,3 +1140,80 @@ def test_train_step_launches_k6_and_k7_twice_and_matches_the_cpu(
     pairs.append((aux["vgrad"], aux_c["vgrad"]))
     for a, b in pairs:
         assert _rel_err(a.cpu(), b) < 1e-4
+
+
+# ----------------------------------------------------------------------
+# the avatar and the posed body (sim/pose_playback)
+# ----------------------------------------------------------------------
+def _body_pair(dev, tmp_path, body=(25, 28)):
+    """The pose-playback body archive at a cut template, loaded onto the
+    card and onto the CPU."""
+    from mpmavatar_tpu_torch.avatar import load_smplx_npz
+    from mpmavatar_tpu_torch.sim import pose_playback
+    path = str(tmp_path / "SMPLX_NEUTRAL.npz")
+    pose_playback.write_body_npz(path, *body)
+    return (load_smplx_npz(path, device=dev),
+            load_smplx_npz(path, device="cpu"))
+
+
+def test_avatar_on_the_card_matches_the_cpu(dev, tmp_path):
+    """smplx_forward and deform_tracked_to_poses (k = 10) on the card
+    against the CPU, within 1e-5 of max |cpu|: float32 sums in other
+    orders and another LU for the blended 4x4s' inverse."""
+    from mpmavatar_tpu_torch.avatar import deform_tracked_to_poses, \
+        smplx_forward
+    from mpmavatar_tpu_torch.sim import pose_playback
+    body, body_c = _body_pair(dev, tmp_path)
+    first, poses = pose_playback.make_poses()
+    on = lambda d, device: {k: torch.as_tensor(v, device=device)
+                            for k, v in d.items()}
+    out, ref = smplx_forward(body, on(poses, dev)), smplx_forward(
+        body_c, on(poses, "cpu"))
+    for f in ("vertices", "joints", "transform_mat", "v_shaped"):
+        assert _rel_err(getattr(out, f).cpu(), getattr(ref, f)) < 1e-5, f
+    cloth = torch.as_tensor(build_cloth(20, 20, y0=pose_playback.CLOTH_Y)[0])
+    a = deform_tracked_to_poses(body, cloth.to(dev), on(first, dev),
+                                on(poses, dev))
+    b = deform_tracked_to_poses(body_c, cloth, on(first, "cpu"),
+                                on(poses, "cpu"))
+    assert _rel_err(a[0].cpu(), b[0]) < 1e-5
+    assert _rel_err(a[2].cpu(), b[2]) < 1e-5
+
+
+def test_vposer_on_the_card_matches_the_cpu(dev):
+    from mpmavatar_tpu_torch.avatar import vposer
+    dec = vposer.init_vposer(torch.Generator().manual_seed(0), device="cpu")
+    z = torch.randn((8, 32), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = dec(z)
+        out = dec.to(dev)(z.to(dev))
+    assert _rel_err(out.cpu(), ref) < 1e-5
+    r = out.cpu()
+    aa_d = vposer.matrix_to_axis_angle(r.to(dev))
+    assert _rel_err(aa_d.cpu(), vposer.matrix_to_axis_angle(r)) < 1e-5
+
+
+def test_pose_playback_goes_through_the_kernels_and_matches_the_cpu(
+        dev, tmp_path):
+    """The posed body at a cut size (16 x 16 cloth, 32^3, the body's
+    template cut to 25 x 28): K1, K2, K5, K3 once and K4 twice per
+    substep, and the kernel path against the plain path on the CPU fed
+    the card's posed sequence."""
+    from mpmavatar_tpu_torch.sim import pose_playback
+    body, body_c = _body_pair(dev, tmp_path)
+    kw = dict(nx=16, grid=32, substeps=10)
+    scene = pose_playback.build(body=body, device=dev, **kw)
+    cpu = pose_playback.build(body=body_c, device="cpu", **kw)
+    cpu.playback = {k: v.cpu() for k, v in scene.playback.items()}
+    _build.reset_launch_counts()
+    out, _ = scene.solver.frame(scene.state, scene.model, DT, 10, 0.0,
+                                **scene.inputs(0))
+    assert _build.launch_counts() == {
+        "cloth_stress": 10, "p2g": 10, "splat": 20, "grid_pipeline": 10,
+        "g2p": 10}
+    ref, _ = cpu.solver.frame(cpu.state, cpu.model, DT, 10, 0.0,
+                              **cpu.inputs(0))
+    for name, atol in (("x", 2e-5), ("v", 1e-3)):
+        err = float((getattr(out, name).cpu() - getattr(ref, name)).abs()
+                    .max())
+        assert err < atol, (name, err)

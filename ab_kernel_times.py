@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Time K1 (cloth stress), K3 (G2P) and K8 (sand stress) of one tree of the
-port by CUDA-graph replay, to compare two trees on one card.
+"""Time K1 (cloth stress), K3 (G2P), K8 (sand stress) and K4 (the splat)
+of one tree of the port by CUDA-graph replay, to compare two trees on one
+card.
 
-    python3 ab_kernel_times.py [TREE]
+    python3 ab_kernel_times.py [TREE] [--kernels k1,k3,k8,k4]
 
 TREE (default: this script's directory) is a checkout whose
 ``mpmavatar_tpu_torch`` is built and timed.  The shapes, the seeded inputs
 and the timing (``graph_ms``) are this script's and this directory's
-``chip_smoke.py``'s, whatever the tree, and the script calls no API that
-the tree before K1's, K3's and K8's redesigns lacks.  So a parent unpacked
-with ``git archive`` under the git-ignored ``scratch/`` and the working
-tree can be timed in turns in one call:
+``chip_smoke.py``'s, whatever the tree; the K1, K3 and K8 group calls no
+API that the tree before their redesigns lacks, and the K4 group none that
+the tree before K4's redesign (with the posed body) lacks.  So a parent
+unpacked with ``git archive`` under the git-ignored ``scratch/`` and the
+working tree can be timed in turns in one call:
 
     for t in scratch/parent . . scratch/parent; do
         python3 ab_kernel_times.py $t || exit 1; done
@@ -21,17 +23,26 @@ velocities; K8 on ``chip_smoke.sand_set`` at path B's 100,000 particles
 (tip / cone / reflected, four fifths selected), on the same set with
 every particle selected (path B's case), and on path B's sand after
 chip_smoke's 2 x 100 substeps (run by the tree's own kernels; the mean
-and largest |F_trial - I| of that sand are printed).  Where
-the toolkit's ``cuobjdump`` is found, it also counts the SASS
-instructions a thread of K8 issues per particle and the issue floor they
-set at path B's 100,000 particles (``sand_sass``).  It holds no kernel
-against its plain version (``chip_smoke.py`` does that) and prints one
-JSON line: the times in ms, K8's SASS counts, the tree and the card's
-name and power limit.
+and largest |F_trial - I| of that sand are printed); K4 at
+``chip_smoke.k4_shapes`` (path A's collider faces and joint points, the
+posed body's faces in mesh order and shuffled, the icosphere torso in
+both face orders, the material trainer's mover, the random points), with
+its blocks by branch where the tree's ``splat`` counts them, and beside
+it the wrapper's zero fill alone (two fills, as the wrapper makes them,
+and one fill of both outputs' size).  Where the toolkit's ``cuobjdump``
+is found, it also counts the SASS instructions a thread of K8 issues per
+particle and the issue floor they set at path B's 100,000 particles
+(``sand_sass``), and K4's atomic and match instructions at CH = 6
+(``splat_sass``).  ``--kernels`` picks the groups timed (default: all).
+It holds no kernel against its plain version (``chip_smoke.py`` does
+that) and prints one JSON line: the times in ms, the SASS counts, the
+tree and the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import inspect
 import json
 import os
 import re
@@ -94,6 +105,24 @@ def sass_issue_count(listing: str, trips: int) -> dict:
             "staging": sum(live) - region}
 
 
+def kernel_sass(lib: Path, name: str, tag: str) -> str | None:
+    """The SASS listing of the first function of the built library
+    ``lib`` whose (mangled) name contains ``name``, written to
+    ``name``-``tag``.sass in ``chip_smoke.OUT``; None without
+    ``cuobjdump`` or such a function."""
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    listing = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, check=True).stdout
+    found = [part for part in listing.split("Function : ")
+             if name in part.split("\n", 1)[0]]
+    if not found:
+        return None
+    (cs.OUT / f"{name}-{tag}.sass").write_text(found[0])
+    return found[0]
+
+
 def sand_sass(lib: Path, tag: str, n_particles: int) -> dict | None:
     """K8's SASS instruction counts (``sass_issue_count``) in the built
     library ``lib``, and the issue floor they set on ``n_particles``: one
@@ -101,17 +130,10 @@ def sand_sass(lib: Path, tag: str, n_particles: int) -> dict | None:
     card's highest SM clock.  The listing goes to sand_kernel-``tag``.sass
     in ``chip_smoke.OUT``."""
     import torch
-    tool = cuobjdump()
-    if tool is None:
+    listing = kernel_sass(lib, "sand_kernel", tag)
+    if listing is None:
         return None
-    listing = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                             text=True, check=True).stdout
-    found = [part for part in listing.split("Function : ")
-             if "sand_kernel" in part.split("\n", 1)[0]]
-    if not found:
-        return None
-    (cs.OUT / f"sand_kernel-{tag}.sass").write_text(found[0])
-    counts = sass_issue_count(found[0], trips=8)
+    counts = sass_issue_count(listing, trips=8)
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -123,27 +145,34 @@ def sand_sass(lib: Path, tag: str, n_particles: int) -> dict | None:
             "issue_floor_ms": 1e3 * floor_s}
 
 
-def main() -> int:
-    tree = Path(sys.argv[1] if len(sys.argv) > 1 else cs.REPO).resolve()
-    sys.path.insert(0, str(tree))
+def splat_sass(lib: Path, tag: str) -> dict | None:
+    """K4's atomic, reduction and match instructions at CH = 6 (the
+    instantiation splat_kernel<6>, or the one kernel of a tree that has no
+    template) in the built library ``lib``, by opcode, over the whole
+    listing (not per point)."""
+    listing = kernel_sass(lib, "splat_kernelILi6E", tag) \
+        or kernel_sass(lib, "splat_kernel", tag)
+    if listing is None:
+        return None
+    ops = {}
+    for line in listing.splitlines():
+        m = SASS_LINE.search(line)
+        if m and m.group(2).startswith(("ATOM", "RED", "MATCH")):
+            ops[m.group(2)] = ops.get(m.group(2), 0) + 1
+    return ops
+
+
+def k1_k3_k8_times(dev, times) -> dict:
+    """K1, K3 and K8 of the imported tree into ``times``; returns the
+    mean and largest |F_trial - I| of path B's sand after its run."""
     import torch
-    if not torch.cuda.is_available():
-        print("ab_kernel_times: no CUDA device", file=sys.stderr)
-        return 1
-    from mpmavatar_tpu_torch.ops import _build
     from mpmavatar_tpu_torch.ops import stress as kstress
     from mpmavatar_tpu_torch.ops import transfer as ktransfer
     from mpmavatar_tpu_torch.sim import bench_scene, cloth_drop
-    if not Path(_build.__file__).resolve().is_relative_to(tree):
-        raise RuntimeError(f"imported {_build.__file__}, not from {tree}")
-    dev = torch.device("cuda")
-    _build.library()
     solver, state, model = cloth_drop.build(cs.NX, cs.GRID, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     k1_in = cs.k1_inputs(state, model, solver.cfg.n_elements, gen)
-    times = {"graph_floor": cs.graph_floor_ms(dev),
-             "cloth_stress": cs.graph_ms(
-                 lambda: kstress.cloth_stress(*k1_in))}
+    times["cloth_stress"] = cs.graph_ms(lambda: kstress.cloth_stress(*k1_in))
     solver_b, state_b, model_b, scene_b = bench_scene.build(
         cs.GRID_B, cs.SAND_B, device=dev)
     perm = cs.random_order(solver.cfg).to(dev)
@@ -174,13 +203,70 @@ def main() -> int:
     drift = (state_b.F_trial - torch.eye(3, device=dev)).abs()
     for label, args in sets.items():
         times[label] = cs.graph_ms(lambda: kstress.sand_stress(*args))
+    return {"mean": float(drift.mean()), "max": float(drift.max())}
+
+
+def k4_times(dev, times, blocks) -> None:
+    """K4 of the imported tree at ``chip_smoke.k4_shapes`` into ``times``,
+    and its blocks by branch into ``blocks`` where its ``splat`` counts
+    them; the zero fill alone at the posed body's shape, two fills and
+    one."""
+    import torch
+    from mpmavatar_tpu_torch.ops import splat as ksplat
+    from mpmavatar_tpu_torch.sim import bench_scene, pose_playback
+    solver_a, state_a, _, scene_a = bench_scene.build(cs.GRID, device=dev)
+    scene_p = pose_playback.build(
+        cs.NX, cs.GRID, body=pose_playback.load_body(device=dev), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counted = "branch_counts" in inspect.signature(ksplat.splat).parameters
+    for label, pts, vals, g, bc in cs.k4_shapes(
+            dev, gen, solver_a, state_a, scene_a, scene_p).values():
+        times[label] = cs.graph_ms(
+            lambda: ksplat.splat(pts, vals, g, g / 2.0, bc))
+        if counted:
+            counts = torch.zeros(2, dtype=torch.int32, device=dev)
+            ksplat.splat(pts, vals, g, g / 2.0, bc, branch_counts=counts)
+            blocks[label] = counts.tolist()
+    n, ch = cs.GRID ** 3, 6
+    times[f"zero fill, two ({cs.GRID}^3, CH={ch})"] = cs.graph_ms(
+        lambda: (torch.zeros((n, ch), device=dev),
+                 torch.zeros((n,), device=dev)))
+    times[f"zero fill, one of both sizes ({cs.GRID}^3, CH={ch})"] = \
+        cs.graph_ms(lambda: torch.zeros((n * (ch + 1),), device=dev))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("tree", nargs="?", default=str(cs.REPO))
+    parser.add_argument("--kernels", default="k1,k3,k8,k4",
+                        help="comma-separated groups: k1, k3 and k8 (timed "
+                             "together), k4")
+    args = parser.parse_args()
+    groups = set(args.kernels.split(","))
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import torch
+    if not torch.cuda.is_available():
+        print("ab_kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    from mpmavatar_tpu_torch.ops import _build
+    if not Path(_build.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {_build.__file__}, not from {tree}")
+    dev = torch.device("cuda")
+    _build.library()
+    lib = Path(_build.build_info()["path"])
     cs.OUT.mkdir(exist_ok=True)
-    sass = sand_sass(Path(_build.build_info()["path"]), tree.name, cs.SAND_B)
-    print(json.dumps({"tree": str(tree), "ms": times, "sand_sass": sass,
-                      "sand_f_trial_minus_i": {
-                          "mean": float(drift.mean()),
-                          "max": float(drift.max())},
-                      "card": cs.nvidia_smi_line()}))
+    times = {"graph_floor": cs.graph_floor_ms(dev)}
+    out = {"tree": str(tree), "ms": times}
+    if groups & {"k1", "k3", "k8"}:
+        out["sand_f_trial_minus_i"] = k1_k3_k8_times(dev, times)
+        out["sand_sass"] = sand_sass(lib, tree.name, cs.SAND_B)
+    if "k4" in groups:
+        out["splat_blocks_tile_direct"] = {}
+        k4_times(dev, times, out["splat_blocks_tile_direct"])
+        out["splat_sass"] = splat_sass(lib, tree.name)
+    out["card"] = cs.nvidia_smi_line()
+    print(json.dumps(out))
     return 0
 
 

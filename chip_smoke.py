@@ -6,7 +6,7 @@ its plain PyTorch version.
 
 Phases (any failure exits nonzero; no phase carries on past its own):
   1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed), and
-     print K1's, K2's, K3's, K6's, K7's and K8's registers, spills,
+     print K1's, K2's, K3's, K4's, K6's, K7's and K8's registers, spills,
      shared memory and blocks per SM as built;
   2. the paths, each through MPMSolver.frame with every launch counter
      reset just before it and read just after, each kernel's launches
@@ -38,8 +38,12 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      K5, K3 and K8
      (autograd over the plain version) timed at the same shapes, and K4's
      at the material trainer's mover (its 183 pinned points on 200^3); K4
-     also at the posed body's 20,736 faces on 128^3 (phase 10's collider)
-     and at a pole-free 20,480-face icosphere on the same torso;
+     also at the posed body's 20,736 faces on 128^3 (phase 10's collider),
+     in mesh order and shuffled, at a pole-free 20,480-face icosphere on
+     the same torso in two face orders, and on stencil tails
+     (``k4_shapes``), each with its warps counted by branch (shared-memory
+     tile, or straight into the grid) and its output read as K5 reads it
+     (``splat_coverage``: the covered cells, acc / w and the normal);
   5. 10 substeps on the kernel path against 10 on the plain path (CPU)
      from the same perturbed states, for a few seeds:
      - the cloth drop, beside two sound plain runs an ulp apart and two
@@ -166,6 +170,18 @@ KERNEL_REL_TOL = {"cloth_stress": 1e-4, "p2g": 1e-5, "grid_pipeline": 1e-5,
 # in another (atomic) order differs by up to ~n/2 ulps, and the bench
 # sphere's 96 zero-area pole faces and the thin faces around them pile
 # their centroids into a few cells
+# K4 as K5 reads it (splat_coverage): a cell is covered where its weight
+# exceeds COVER_EPS (csrc/grid_pipeline.cu kEps); the kernel and the plain
+# version must cover the same cells but those whose plain weight lies
+# within a factor COVER_BAND of COVER_EPS (counted, and printed), and on
+# the cells both cover acc / w and the unit normal must agree within the
+# splat's tolerance: each is a ratio of two sums of the same n <= n_max
+# terms in another order, each sum within (n - 1) 2^-24 of the sum of its
+# terms' magnitudes, so the velocity within n_max 2^-23 of max |values|,
+# and the normal within it times w / |acc[:, 3:6]| (opposing normals
+# cancel).  A fixed-point tile would fail it where only stencil tails
+# (weights far below its quantum) reach a cell
+COVER_EPS, COVER_BAND = 1e-15, 2.0
 # K8, on the particles whose return-map branch is the same in both: F_new
 # (O(1)) absolutely, the stress relative to mu.  The stress is
 # (2 mu + 3 lam) log s ~ 10 mu log s, and log s of s ~ 1 carries ~1e-7 of
@@ -389,11 +405,17 @@ def bound(n_bytes: float, n_flops: float):
     return 1e3 * t_ops, "operations"
 
 
-def icosphere(levels: int):
+def icosphere(levels: int, in_place: bool = False):
     """A unit icosahedron whose triangles are split into 4, ``levels``
     times, the new vertices pushed onto the sphere: 10 * 4^levels + 2
     vertices and 20 * 4^levels faces, wound outward, of near-equal area
-    and with no pole.  Returns (verts (V, 3) float32, faces (F, 3))."""
+    and with no pole.  Returns (verts (V, 3) float32, faces (F, 3)).
+
+    The faces come by kind of child (each face's first child, then each
+    face's second, ...), so that consecutive faces lie on the 20 faces of
+    the icosahedron, all over the sphere; with ``in_place`` each face's
+    four children replace it where it stood, so that consecutive faces
+    are neighbours, as a mesh keeps them."""
     import numpy as np
     t = (1.0 + 5 ** 0.5) / 2.0
     verts = np.asarray([(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
@@ -415,8 +437,9 @@ def icosphere(levels: int):
         verts = np.concatenate([verts, unit(verts[ends[:, 0]]
                                             + verts[ends[:, 1]])])
         a, b, c = faces.T
-        faces = np.concatenate([np.stack(f, -1) for f in (
-            (a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))])
+        faces = np.stack([np.stack(f, -1) for f in (
+            (a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))],
+            1 if in_place else 0).reshape(-1, 3)
     return verts.astype(np.float32), faces
 
 
@@ -426,6 +449,170 @@ def graph_floor_ms(dev) -> float:
     import torch
     tiny = torch.zeros(1, device=dev)
     return graph_ms(tiny.zero_)
+
+
+def k4_shapes(dev, gen, solver_a, state_a, scene_a, scene_p) -> dict:
+    """K4's inputs at the main path's shapes and beside them, by key:
+    (label, points, values, G, bounds_check).  The bench collider's faces
+    (CH = 6) and the joint points (CH = 3) of path A's state at 128^3, the
+    faces at 250^3; the posed body's 20,736 faces (phase 10's collider) at
+    its first pose; a pole-free torso (``icosphere(5)``, 20,480 faces, on
+    the posed body's ellipsoid, turning at 1 rad/s about the vertical
+    axis) in its construction order and in place (``in_place``); the
+    material trainer's mover (its 183 pinned points on 200^3, turning at
+    MAT_OMEGA); 20,000 random points with some at base G - 3 and below 0,
+    with and without the bounds check; the stencil tails of
+    ``tail_lattice(16, GRID)``; the posed body's faces in a random order.
+    Random draws from ``gen``."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.core import stepping
+    from mpmavatar_tpu_torch.core.colliders import MeshCollider
+    from mpmavatar_tpu_torch.sim import SimTransform, pose_playback
+    from mpmavatar_tpu_torch.train import bench_material
+    shapes = {}
+    face_pts, face_vals = stepping.mesh_face_values(
+        solver_a.colliders.mesh_colliders[0], scene_a["mesh_x"],
+        scene_a["mesh_v"])
+    joint_pts, joint_vals = stepping.mover_points(
+        solver_a.cfg, state_a, scene_a["joint_verts_v"],
+        scene_a["joint_faces_v"], None)
+    shapes["faces"] = (f"splat (collider faces, {GRID}^3)", face_pts,
+                       face_vals, GRID, True)
+    shapes["joints"] = (f"splat (joint points, {GRID}^3)", joint_pts,
+                        joint_vals, GRID, True)
+    shapes["faces_b"] = (f"splat (collider faces, {GRID_B}^3)", face_pts,
+                         face_vals, GRID_B, True)
+    in_p = scene_p.inputs(0)
+    pose_pts, pose_vals = stepping.mesh_face_values(
+        scene_p.solver.colliders.mesh_colliders[0], in_p["mesh_x"],
+        in_p["mesh_v"])
+    shapes["posed"] = (f"splat (the posed body's {len(pose_pts)} faces, "
+                       f"{GRID}^3)", pose_pts, pose_vals, GRID, True)
+    ico_c = torch.tensor(pose_playback.BODY_CENTER, device=dev)
+    for key, in_place in (("ico", False), ("ico_in_place", True)):
+        ico_v, ico_f = icosphere(5, in_place)
+        ico_x = torch.as_tensor(ico_v, device=dev) * torch.tensor(
+            pose_playback.BODY_RADII, device=dev) + ico_c
+        rel = ico_x - ico_c
+        ico_vel = torch.stack([rel[:, 2], torch.zeros_like(rel[:, 0]),
+                               -rel[:, 0]], -1)
+        ico_pts, ico_vals = stepping.mesh_face_values(
+            MeshCollider(faces=torch.as_tensor(ico_f, device=dev),
+                         friction=torch.tensor(0.5, device=dev)), ico_x,
+            ico_vel)
+        label = (f"splat (the icosphere torso, its faces in place, "
+                 f"{GRID}^3)" if in_place else
+                 f"splat (a pole-free {len(ico_pts)}-face icosphere torso, "
+                 f"{GRID}^3)")
+        shapes[key] = (label, ico_pts, ico_vals, GRID, True)
+    cloth_m, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
+    tf_m = SimTransform.from_verts(cloth_m)
+    row = cloth_m[:MAT_NX]
+    row_v = MAT_OMEGA * np.stack([row[:, 2] - 1.0, np.zeros(MAT_NX),
+                                  1.0 - row[:, 0]], -1)
+    shapes["mover"] = (f"splat (the material trainer's {MAT_NX} pinned "
+                       f"points, {MAT_GRID}^3)", tf_m.wld2sim(row, dev),
+                       tf_m.vel2sim(row_v, dev), MAT_GRID, True)
+    edge = 0.1 + 1.8 * torch.rand((20_000, 3), generator=gen, device=dev)
+    dx = 2.0 / GRID
+    edge[:2000, 0] = (GRID - 2.3) * dx + 0.4 * dx * torch.rand(
+        2000, generator=gen, device=dev)          # base G - 3: dropped
+    edge[2000:4000, 1] = -0.2 * torch.rand(2000, generator=gen, device=dev)
+    # base -1 on x, distinct points spread over the (y, z) cells; 16 of
+    # them with base (-1, -1, -1): dropped, or wrapped without the check
+    edge[4000:6000, 0] = 0.45 * dx * torch.rand(2000, generator=gen,
+                                                device=dev)
+    edge[4000:4016] = 0.45 * dx * torch.rand((16, 3), generator=gen,
+                                             device=dev)
+    edge_vals = torch.randn((20_000, 6), generator=gen, device=dev)
+    for bc in (True, False):
+        shapes[f"random_{bc}"] = (
+            f"splat (random points with base G-3 and below 0, "
+            f"bounds_check={bc})", edge, edge_vals, GRID, bc)
+    tail_pts, tail_vals = tail_lattice(16, GRID)
+    shapes["tails"] = (f"splat (stencil tails: 3 points on each of 16^3 "
+                       f"lattice sites, {GRID}^3)",
+                       torch.as_tensor(tail_pts, device=dev),
+                       torch.as_tensor(tail_vals, device=dev), GRID, True)
+    shuffle = torch.randperm(len(pose_pts), generator=gen, device=dev)
+    shapes["posed_shuffled"] = (
+        f"splat (the posed body's {len(pose_pts)} faces in a random order, "
+        f"{GRID}^3)", pose_pts[shuffle], pose_vals[shuffle], GRID, True)
+    return shapes
+
+
+def tail_lattice(n: int, g: int):
+    """K4's stencil tails: n^3 sites in lattice order on bases three cells
+    apart (from 4 on every axis: no two sites' stencils meet), 3 points on
+    each; per site and axis the points' fractions fx = grid_pos - base are
+    either all 1.5 - d (the stencil's first node weighs d^2 / 2 there) or
+    all 0.5 + d (its last node), d log-uniform in [1e-4, 0.3] per point,
+    so that the cells which only such tails reach carry sums of 3 weights
+    from ~0.05 down to ~1e-25, many around K5's 1e-15; per point a seeded
+    velocity and unit normal (CH = 6).  Returns numpy float32 (points
+    (3 n^3, 3), values (3 n^3, 6)) on a grid of g cells over 2.0 (g >=
+    3 n + 5)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    sites = 4 + 3 * np.stack(np.meshgrid(*[np.arange(n)] * 3,
+                                         indexing="ij"), -1).reshape(-1, 3)
+    base = np.repeat(sites, 3, axis=0)
+    d = 10.0 ** rng.uniform(-4.0, np.log10(0.3), base.shape)
+    first = np.repeat(rng.random(sites.shape) < 0.5, 3, axis=0)
+    fx = np.where(first, 1.5 - d, 0.5 + d)
+    pts = ((base + fx) * (2.0 / g)).astype(np.float32)
+    nrm = rng.normal(size=(len(pts), 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    vals = np.concatenate([rng.normal(size=(len(pts), 3)), nrm], 1)
+    return pts, vals.astype(np.float32)
+
+
+def splat_n_max(pts, g: int, bounds_check: bool) -> int:
+    """The most points whose base cell is one cell, by K4's index rule."""
+    import torch
+    from mpmavatar_tpu_torch.ops import transfer as ktransfer
+    base = torch.floor(pts * g / 2.0 - 0.5).long()
+    flat = ktransfer.flat_indices(base, g)
+    flat = torch.where(flat < 0, flat + g ** 3, flat)
+    keep = (flat >= 0) & (flat < g ** 3)
+    if bounds_check:
+        keep &= torch.all((base >= 0) & (base < g - 3), dim=1)[:, None]
+    return int(torch.bincount(flat[keep]).max()) if bool(keep.any()) else 0
+
+
+def splat_coverage(out, ref, vals) -> dict:
+    """K4's output as K5 reads it, kernel (``out``) against plain
+    (``ref``): the cells covered (grid_w > COVER_EPS) by one and not the
+    other, those of them whose plain weight lies within a factor
+    COVER_BAND of COVER_EPS (``threshold``), and on the cells both cover
+    the largest error of acc[:, :3] / w over max |values[:, :3]|
+    (``velocity``) and, with CH = 6, of the normal acc[:, 3:6] /
+    max(|acc[:, 3:6]|, 1e-12) over its conditioning, max(1, w /
+    max(|acc[:, 3:6]|, 1e-12)) (``normal``)."""
+    import torch
+    (acc, w), (acc_r, w_r) = out, ref
+    cov, cov_r = w > COVER_EPS, w_r > COVER_EPS
+    differ = cov != cov_r
+    band = ((w_r >= COVER_EPS / COVER_BAND)
+            & (w_r <= COVER_EPS * COVER_BAND))
+    both = cov & cov_r
+    res = {"covered": int(cov_r.sum()), "differ": int(differ.sum()),
+           "threshold": int((differ & band).sum()),
+           "velocity": 0.0, "normal": 0.0}
+    if not bool(both.any()):
+        return res
+    a, b, wa, wb = acc[both], acc_r[both], w[both, None], w_r[both, None]
+    vmax = max(float(vals[:, :3].abs().max()), 1e-30)
+    res["velocity"] = float((a[:, :3] / wa - b[:, :3] / wb).abs().max()) \
+        / vmax
+    if acc.shape[1] == 6:
+        na = a[:, 3:].norm(dim=1, keepdim=True).clamp_min(1e-12)
+        nb = b[:, 3:].norm(dim=1, keepdim=True).clamp_min(1e-12)
+        cond = torch.clamp_min(wb / nb, 1.0)
+        res["normal"] = float(((a[:, 3:] / na - b[:, 3:] / nb).abs()
+                               / cond).max())
+    return res
 
 
 def k1_inputs(state, model, n_el, gen):
@@ -1883,8 +2070,8 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Function" in line:
                 print("  ptxas:", line.strip())
-    for name, v in {**kstress.kernel_info(),
-                    **ktransfer.kernel_info()}.items():
+    for name, v in {**kstress.kernel_info(), **ktransfer.kernel_info(),
+                    **ksplat.kernel_info()}.items():
         print(f"  as built: {name} {v['registers']} registers/thread, "
               f"{v['spill_bytes']} spilled bytes/thread, "
               f"{v['shared_bytes']} shared bytes/block, "
@@ -2104,31 +2291,35 @@ def main() -> int:
                (state_b.selection == 0).float(), DT * stress_b, DT * vf_b,
                GRID_B, cfg_b.inv_dx, cfg_b.dx), launches_b)
 
-    # K4 at path A's and path B's shapes: the collider's faces (CH = 6)
-    # and the joint points (CH = 3), from the paths' final states
+    # K4 at the main path's shapes and beside them (k4_shapes), its blocks
+    # counted by branch and its output read as K5 reads it (splat_coverage)
     col_a = solver_a.colliders.mesh_colliders[0]
-    face_pts, face_vals = stepping.mesh_face_values(
-        col_a, scene_a["mesh_x"], scene_a["mesh_v"])
-    joints = (scene_a["joint_verts_v"], scene_a["joint_faces_v"], None)
-    joint_pts, joint_vals = stepping.mover_points(cfg_a, state_a, *joints)
 
     def splat_check(label, pts, vals, g, bounds_check=True):
         args = (pts, vals, g, g / 2.0, bounds_check)
-        out = ksplat.splat(*args)
+        counts = torch.zeros(2, dtype=torch.int32, device=dev)
+        out = ksplat.splat(*args, branch_counts=counts)
         ref = ksplat.splat_plain(*args)
+        tile, direct = counts.tolist()
         n_pts, ch = vals.shape
-        fill = lambda: (torch.zeros((g ** 3, ch), device=dev),
-                        torch.zeros((g ** 3,), device=dev))
-        fill_ms = graph_ms(fill)
-        # points per cell, by the kernel's own index rule
-        base = torch.floor(pts * g / 2.0 - 0.5).long()
-        flat = ktransfer.flat_indices(base, g)
-        flat = torch.where(flat < 0, flat + g ** 3, flat)
-        keep = (flat >= 0) & (flat < g ** 3)
-        if bounds_check:
-            keep &= torch.all((base >= 0) & (base < g - 3), dim=1)[:, None]
-        n_max = int(torch.bincount(flat[keep]).max())
+        fill_ms = graph_ms(
+            lambda: torch.zeros((g ** 3 * (ch + 1),), device=dev))
+        n_max = splat_n_max(pts, g, bounds_check)
         tol = max(KERNEL_REL_TOL["splat"], n_max * 2.0 ** -23)
+        cover = splat_coverage(out, ref, vals)
+        print(f"  {label}: {n_pts} points, CH={ch}, {g}^3; {tile} warps "
+              f"through their shared-memory tile, {direct} straight into "
+              f"the grid; the wrapper's zero fill alone {fill_ms:.4f} ms; "
+              f"{cover['covered']} cells covered, up to {n_max} points on "
+              f"one cell; covered by one of kernel and plain only: "
+              f"{cover['differ']} cells, {cover['threshold']} of them within "
+              f"{COVER_BAND:g}x of {COVER_EPS:g}; on the cells both cover "
+              f"acc / w err {cover['velocity']:.3e}, normal err "
+              f"{cover['normal']:.3e} (tol {tol:.1e})")
+        if cover["differ"] != cover["threshold"] or max(
+                cover["velocity"], cover["normal"]) > tol:
+            raise AssertionError(f"{label}: the kernel's coverage or acc / w "
+                                 "disagrees with the plain version's")
         # bytes: points and values in ((3 + CH) floats each), the dense
         # fields out ((CH + 1) floats per cell, written by the wrapper's
         # zero fill); ~30 + 27 x 2 (CH + 1) FP32 operations per point
@@ -2138,73 +2329,23 @@ def main() -> int:
               4 * (n_pts * (3 + ch) + g ** 3 * (ch + 1)),
               n_pts * (30 + 54.0 * (ch + 1)), launches_a, label=label,
               err=tol, extra={"fill_ms": fill_ms, "points": n_pts,
-                              "channels": ch, "grid": g})
-        print(f"  {label}: {n_pts} points, CH={ch}, {g}^3; the wrapper's "
-              f"zero fill alone {fill_ms:.4f} ms; "
-              f"{int((ref[1] > 1e-15).sum())} cells covered, up to {n_max} "
-              f"points on one cell")
-        return out
+                              "channels": ch, "grid": g,
+                              "tile_warps": tile, "direct_warps": direct,
+                              "coverage": cover})
+        return out, (tile, direct)
 
-    acc_a, mw_a = splat_check("splat (collider faces, 128^3)", face_pts,
-                              face_vals, GRID)
-    mv_a, mvw_a = splat_check("splat (joint points, 128^3)", joint_pts,
-                              joint_vals, GRID)
-    splat_check("splat (collider faces, 250^3)", face_pts, face_vals,
-                GRID_B)
-    # the posed body's faces (phase 10) at its first pose
-    in_p = scene_p.inputs(0)
-    pose_pts, pose_vals = stepping.mesh_face_values(
-        scene_p.solver.colliders.mesh_colliders[0], in_p["mesh_x"],
-        in_p["mesh_v"])
-    splat_check(f"splat (the posed body's {len(pose_pts)} faces, "
-                f"{GRID}^3)", pose_pts, pose_vals, GRID)
-    # the same torso tessellated without poles (the UV sphere's pole rings
-    # pile hundreds of centroids into one cell; a real SMPL-X mesh has no
-    # such pole): a 5-times split icosahedron, 20,480 faces, stretched
-    # onto the posed body's ellipsoid and turning at 1 rad/s about the
-    # vertical axis (ROOT_TURN per frame)
-    from mpmavatar_tpu_torch.core.colliders import MeshCollider
-    ico_v, ico_f = icosphere(5)
-    ico_c = torch.tensor(pose_playback.BODY_CENTER, device=dev)
-    ico_x = torch.as_tensor(ico_v, device=dev) * torch.tensor(
-        pose_playback.BODY_RADII, device=dev) + ico_c
-    rel = ico_x - ico_c
-    ico_vel = torch.stack([rel[:, 2], torch.zeros_like(rel[:, 0]),
-                           -rel[:, 0]], -1)
-    ico_pts, ico_vals = stepping.mesh_face_values(
-        MeshCollider(faces=torch.as_tensor(ico_f, device=dev),
-                     friction=torch.tensor(0.5, device=dev)), ico_x, ico_vel)
-    splat_check(f"splat (a pole-free {len(ico_pts)}-face icosphere torso, "
-                f"{GRID}^3)", ico_pts, ico_vals, GRID)
-    # the material trainer's mover (phase 9): its pinned row on 200^3,
-    # turning at MAT_OMEGA about the vertical axis
-    import numpy as np
-    from mpmavatar_tpu_torch.sim import SimTransform
-    from mpmavatar_tpu_torch.train import bench_material
-    cloth_m, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
-    tf_m = SimTransform.from_verts(cloth_m)
-    row = cloth_m[:MAT_NX]
-    row_v = MAT_OMEGA * np.stack([row[:, 2] - 1.0, np.zeros(MAT_NX),
-                                  1.0 - row[:, 0]], -1)
-    mover_m = (tf_m.wld2sim(row, dev), tf_m.vel2sim(row_v, dev))
-    mover_label = (f"splat (the material trainer's {MAT_NX} pinned points, "
-                   f"{MAT_GRID}^3)")
-    splat_check(mover_label, *mover_m, MAT_GRID)
-    edge = 0.1 + 1.8 * torch.rand((20_000, 3), generator=gen, device=dev)
-    dx = 2.0 / GRID
-    edge[:2000, 0] = (GRID - 2.3) * dx + 0.4 * dx * torch.rand(
-        2000, generator=gen, device=dev)          # base G - 3: dropped
-    edge[2000:4000, 1] = -0.2 * torch.rand(2000, generator=gen, device=dev)
-    # base -1 on x, distinct points spread over the (y, z) cells; 16 of
-    # them with base (-1, -1, -1): dropped, or wrapped without the check
-    edge[4000:6000, 0] = 0.45 * dx * torch.rand(2000, generator=gen,
-                                                device=dev)
-    edge[4000:4016] = 0.45 * dx * torch.rand((16, 3), generator=gen,
-                                             device=dev)
-    edge_vals = rnd(20_000, 6)
-    for bc in (True, False):
-        splat_check(f"splat (random points with base G-3 and below 0, "
-                    f"bounds_check={bc})", edge, edge_vals, GRID, bc)
+    shapes = k4_shapes(dev, gen, solver_a, state_a, scene_a, scene_p)
+    k4_out = {}
+    for key, shape in shapes.items():
+        out, (tile, direct) = splat_check(*shape)
+        if key in ("faces", "joints"):      # K5's inputs below
+            k4_out[key] = out
+        # the colliders in mesh order: most warps' boxes fit their tile
+        if key in ("posed", "ico_in_place") and not tile > direct:
+            raise AssertionError(f"{shape[0]}: {tile} warps through their "
+                                 f"tile, {direct} straight into the grid")
+    (acc_a, mw_a), (mv_a, mvw_a) = k4_out["faces"], k4_out["joints"]
+    mover_label, mover_m = shapes["mover"][0], shapes["mover"][1:3]
 
     # K5 at path A's shapes, its mesh and mover branches on
     post_a = solver_a.colliders.grid_post

@@ -128,7 +128,7 @@ _SIGNATURES = {
     "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
     "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _F, _I, _I, _I,
                                          _I, _I, _I, _P, _P],
-    "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+    "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
@@ -136,6 +136,7 @@ _SIGNATURES = {
     "sand_stress_info": [_IP],
     "p2g_info": [_IP],
     "g2p_info": [_IP],
+    "splat_info": [_I, _IP],
     "composite_info": [_I, _I, _IP],
     "composite_bwd_info": [_I, _I, _IP],
 }
@@ -206,3 +207,13 @@ def check_cuda(name: str, t, dtype=None):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     return t.contiguous()
+
+
+def check_branch_counts(kernel: str, branch_counts) -> None:
+    """Raise unless ``branch_counts`` is None or an int32 (2,) CUDA tensor
+    (a tiled kernel's blocks counted by branch)."""
+    if branch_counts is not None and (
+            branch_counts.shape != (2,) or not branch_counts.is_cuda
+            or branch_counts.dtype != torch.int32):
+        raise ValueError(f"{kernel}: branch_counts must be an int32 (2,) "
+                         "CUDA tensor")

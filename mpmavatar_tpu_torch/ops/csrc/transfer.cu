@@ -89,6 +89,7 @@
 
 #include "attributes.cuh"
 #include "staging.cuh"
+#include "stencil_box.cuh"
 
 namespace {
 
@@ -139,56 +140,6 @@ struct P2GParticle : Stencil {
   float s, ms, vp[3], cm[9], sm[9];   // sm: stress, or vforce in sm[0..2]
   bool vertex;
 };
-
-// The stencil bounding box of a block's live particles.  Every thread
-// calls box_warps (per warp, the min and max base of each axis), then,
-// after a __syncthreads, one thread calls box_of.
-template <int kWarps>
-struct BoxScratch {
-  int lo[3][kWarps], hi[3][kWarps];
-};
-
-struct Box {
-  int lo[3], ext[3];   // corner and extents (capped at 2^20 per axis)
-  long long cells;
-  bool inside;         // within [0, G)^3 on every axis
-};
-
-template <int kWarps>
-__device__ __forceinline__ void box_warps(const int base[3], bool live,
-                                          BoxScratch<kWarps>& s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int a = 0; a < 3; ++a) {
-    const int lo = __reduce_min_sync(0xffffffffu, live ? base[a]
-                                                       : 0x7fffffff);
-    const int hi = __reduce_max_sync(0xffffffffu, live ? base[a]
-                                                       : -0x7fffffff - 1);
-    if (lane == 0) {
-      s.lo[a][warp] = lo;
-      s.hi[a][warp] = hi;
-    }
-  }
-}
-
-template <int kWarps>
-__device__ __forceinline__ Box box_of(const BoxScratch<kWarps>& s, int G) {
-  Box b;
-  b.cells = 1;
-  b.inside = true;
-  for (int a = 0; a < 3; ++a) {
-    int l = s.lo[a][0], h = s.hi[a][0];
-    for (int w = 1; w < kWarps; ++w) {
-      l = min(l, s.lo[a][w]);
-      h = max(h, s.hi[a][w]);
-    }
-    const long long ext = static_cast<long long>(h) - l + 3;
-    b.cells *= ext;
-    b.lo[a] = l;
-    b.ext[a] = static_cast<int>(min(ext, 1LL << 20));
-    b.inside = b.inside && l >= 0 && l + ext <= G;
-  }
-  return b;
-}
 
 __device__ __forceinline__ void p2g_load(
     const float* __restrict__ x, const float* __restrict__ v,
@@ -251,17 +202,6 @@ __device__ __forceinline__ void p2g_bound(const P2GParticle& q, float inv_dx,
     b[a] = fabsf(q.ms) * (fabsf(q.vp[a]) + 1.5f * dx * c) + fabsf(q.s) * f;
   }
   b[3] = fabsf(q.ms);
-}
-
-// The scatter's index rule: the cell of grid coordinates (gi, gj, gk), or
-// -1 where it is dropped.
-__device__ __forceinline__ long long grid_cell(int gi, int gj, int gk,
-                                               int G) {
-  const long long n_cells = static_cast<long long>(G) * G * G;
-  const long long flat =
-      (static_cast<long long>(gi) * G + gj) * G + gk;
-  const long long cell = flat < 0 ? flat + n_cells : flat;
-  return (cell < 0 || cell >= n_cells) ? -1 : cell;
 }
 
 __device__ __forceinline__ void add_cell(float* __restrict__ grid_v,

@@ -21,6 +21,12 @@ only the halo path, which the port does not have.  So on CUDA tensors
 that need grad ``splat`` launches the kernel inside
 ``_autograd.KernelWithTwinGrad``, whose backward is autograd over
 ``splat_plain``, as for K1, K2, K3, K5 and K8.
+
+On the card each warp of 32 points sums its nodes in a shared-memory tile
+of their stencils' box where the box fits, else adds them straight into
+the grid; a launch of fewer than TILE_MIN_POINTS points takes a kernel
+with one thread per point and node, straight into the grid
+(csrc/splat.cu).  ``branch_counts`` counts the warps of each branch.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ from . import _autograd, _build
 from .transfer import bspline, flat_indices, scatter_rows, stencil_products
 
 KERNEL = "splat"
+# the fewest points splatted through warp tiles; fewer (a few warps per
+# SM, whose chains of 27 nodes would set the kernel's time) go one thread
+# per point and node straight into the grid (csrc/splat.cu, where the
+# timings that set it are)
+TILE_MIN_POINTS = 8192
 
 
 def _check_shapes(points, values):
@@ -40,35 +51,50 @@ def _check_shapes(points, values):
 
 
 def splat(points, values, n_grid: int, inv_dx: float,
-          bounds_check: bool = True):
+          bounds_check: bool = True, branch_counts=None):
     """(grid_vals (G^3, CH), grid_w (G^3,)): sum over points of w * values
     and of w, w the 27-node stencil weight.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
     plain version only for CPU tensors.  Under grad, points and values
-    are differentiable; the backward is autograd over ``splat_plain``."""
+    are differentiable; the backward is autograd over ``splat_plain``.
+    ``branch_counts``, an int32 (2,) CUDA tensor, counts the warps of 32
+    points that summed their nodes in a shared-memory tile and those that
+    added them straight into the grid."""
     _check_shapes(points, values)
     if not points.is_cuda:
         return splat_plain(points, values, n_grid, inv_dx, bounds_check)
-    return _autograd.call(_launch, splat_plain, points, values, n_grid,
+    _build.check_branch_counts("splat", branch_counts)
+    launch = lambda *args: _launch(*args, branch_counts)
+    return _autograd.call(launch, splat_plain, points, values, n_grid,
                           inv_dx, bounds_check)
 
 
-def _launch(points, values, n_grid, inv_dx, bounds_check):
-    """K4 on CUDA tensors into two zero-filled grids."""
+def _launch(points, values, n_grid, inv_dx, bounds_check, branch_counts):
+    """K4 on CUDA tensors into the two zero-filled outputs."""
     pts = _build.check_cuda("points", points)
     vals = _build.check_cuda("values", values)
     n, ch = vals.shape
     n_cells = n_grid ** 3
-    grid_vals = torch.zeros((n_cells, ch), dtype=pts.dtype,
-                            device=pts.device)
-    grid_w = torch.zeros((n_cells,), dtype=pts.dtype, device=pts.device)
+    # both outputs zeroed by one fill, each a contiguous view of it
+    fields = torch.zeros((n_cells * (ch + 1),), dtype=pts.dtype,
+                         device=pts.device)
+    grid_vals = fields[:n_cells * ch].view(n_cells, ch)
+    grid_w = fields[n_cells * ch:]
     if n:
         _build.launch(KERNEL, "launch_splat", pts.data_ptr(), vals.data_ptr(),
                       n, ch, n_grid, inv_dx, int(bounds_check),
-                      grid_vals.data_ptr(), grid_w.data_ptr(),
-                      _build.stream(pts.device))
+                      int(n >= TILE_MIN_POINTS), grid_vals.data_ptr(),
+                      grid_w.data_ptr(),
+                      _build.ptr(branch_counts), _build.stream(pts.device))
     return grid_vals, grid_w
+
+
+def kernel_info() -> dict:
+    """K4's registers, spills, shared memory and blocks per SM as built,
+    at CH = 6 (the collider) and CH = 3 (the mover) (CUDA only)."""
+    return {f"{KERNEL} (CH={ch})": _build.kernel_attributes("splat_info", ch)
+            for ch in (6, 3)}
 
 
 def splat_plain(points, values, n_grid: int, inv_dx: float,

@@ -100,14 +100,6 @@ def _check_p2g_shapes(x, v, c_eff, mass, sel, stress, vforce):
         raise ValueError("p2g: inconsistent particle shapes")
 
 
-def _check_branch_counts(kernel: str, branch_counts) -> None:
-    if branch_counts is not None and (
-            branch_counts.shape != (2,) or not branch_counts.is_cuda
-            or branch_counts.dtype != torch.int32):
-        raise ValueError(f"{kernel}: branch_counts must be an int32 (2,) "
-                         "CUDA tensor")
-
-
 def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
         dx: float, branch_counts=None):
     """APIC particle-to-grid scatter.  Returns (grid_v_in (G^3, 3),
@@ -123,7 +115,7 @@ def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
     if not x.is_cuda:
         return p2g_plain(x, v, c_eff, mass, sel, stress, vforce, n_grid,
                          inv_dx, dx)
-    _check_branch_counts("p2g", branch_counts)
+    _build.check_branch_counts("p2g", branch_counts)
     launch = lambda *args: _launch_p2g(*args, branch_counts)
     return _autograd.call(launch, p2g_plain, x, v, c_eff, mass, sel, stress,
                           vforce, n_grid, inv_dx, dx)
@@ -183,7 +175,7 @@ def g2p(x, grid_v, n_grid: int, inv_dx: float, branch_counts=None):
         raise ValueError("g2p: x must be (P, 3) and grid_v (G^3, 3)")
     if not x.is_cuda:
         return g2p_plain(x, grid_v, n_grid, inv_dx)
-    _check_branch_counts("g2p", branch_counts)
+    _build.check_branch_counts("g2p", branch_counts)
     launch = lambda *args: _launch_g2p(*args, branch_counts)
     return _autograd.call(launch, g2p_plain, x, grid_v, n_grid, inv_dx)
 

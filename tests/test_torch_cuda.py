@@ -13,9 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from mpmavatar_tpu_torch.core import colliders as tcol
 from mpmavatar_tpu_torch.core import stepping
-from mpmavatar_tpu_torch.core.types import (MPMStaticConfig, build_cloth,
+from mpmavatar_tpu_torch.core.types import (MPMStaticConfig,
+                                            build_body_sphere, build_cloth,
                                             cloth_scene, make_model,
                                             make_state)
 from mpmavatar_tpu_torch.ops import _build
@@ -26,7 +29,7 @@ from mpmavatar_tpu_torch.ops import stress as kstress
 from mpmavatar_tpu_torch.ops import transfer as ktr
 from mpmavatar_tpu_torch.data import OptimizationParams
 from mpmavatar_tpu_torch.render import bench_render
-from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene
+from mpmavatar_tpu_torch.sim import MPMSolver, bench_scene, pose_playback
 from mpmavatar_tpu_torch.train import appearance as tapp
 from mpmavatar_tpu_torch.train import bench_appearance, bench_material
 
@@ -411,7 +414,7 @@ def _splat_points(dev, n=500, G=32, seed=0):
     return pts
 
 
-@pytest.mark.parametrize("ch", [3, 6])
+@pytest.mark.parametrize("ch", [1, 3, 6, 9])
 @pytest.mark.parametrize("bounds_check", [True, False])
 @pytest.mark.parametrize("G", [32, 200])
 def test_splat_kernel_matches_plain(dev, ch, bounds_check, G):
@@ -420,7 +423,10 @@ def test_splat_kernel_matches_plain(dev, ch, bounds_check, G):
     the floor and the subtraction.  A multiply contracted into them moves
     fx by up to half an ulp of x * inv_dx, which each cell's weight
     shows relative to itself (up to ~1e-2 where fx - 0.5 is small); the
-    plain version's own rounding stays within a few ulps."""
+    plain version's own rounding stays within a few ulps.  The random
+    points' boxes do not fit the tile, so every block adds straight into
+    the grid; CH = 9 takes the kernel's instantiation for more than 7
+    channels (scalar atomics)."""
     pts = _splat_points(dev, G=G)
     vals = torch.randn((pts.shape[0], ch), device=dev)
     before = _build.launch_counts().get(ksplat.KERNEL, 0)
@@ -432,6 +438,84 @@ def test_splat_kernel_matches_plain(dev, ch, bounds_check, G):
     w, w_ref = out[1], ref[1]
     covered = w_ref > 1e-20
     assert float(((w - w_ref).abs() / w_ref)[covered].max()) < 1e-5
+
+
+
+def _torso_faces(dev, seed=0):
+    """The posed body's template at rest: build_body_sphere(97, 108) on
+    pose_playback's torso ellipsoid, wound outward, its 20,736 faces in
+    mesh order (rings of 108 quads' first triangles, then their second);
+    K4's collider inputs (stepping.mesh_face_values) with seeded vertex
+    velocities."""
+    unit, faces = build_body_sphere(97, 108, center=(0.0, 0.0, 0.0), r=1.0)
+    verts = torch.as_tensor(
+        unit * np.asarray(pose_playback.BODY_RADII, np.float32)
+        + np.asarray(pose_playback.BODY_CENTER, np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    col = tcol.MeshCollider(
+        faces=torch.as_tensor(faces[:, [0, 2, 1]], device=dev),
+        friction=torch.tensor(0.5, device=dev))
+    return stepping.mesh_face_values(
+        col, verts, torch.randn(verts.shape, generator=gen, device=dev))
+
+
+def _splat_shape(dev, shape):
+    """(points, values, G) of a K4 branch test at 128^3."""
+    if shape.startswith("tails"):
+        # 3 n^3 points: enough for the tile kernel, or (", few") not
+        n = int(np.ceil((ksplat.TILE_MIN_POINTS / 3) ** (1 / 3)))
+        pts, vals = chip_smoke.tail_lattice(n if shape == "tails" else 6,
+                                            128)
+        return torch.as_tensor(pts, device=dev), torch.as_tensor(
+            vals, device=dev), 128
+    pts, vals = _torso_faces(dev)
+    if shape == "torso shuffled":
+        perm = torch.randperm(len(pts), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(1))
+        pts, vals = pts[perm], vals[perm]
+    return pts, vals, 128
+
+
+@pytest.mark.parametrize("shape", ["torso", "torso shuffled", "tails",
+                                   "tails, few"])
+def test_splat_kernel_tile_and_direct_branches(dev, shape):
+    """K4 against its plain version on the posed body's 20,736 faces in
+    mesh order (most warps' stencil boxes fit their shared-memory tile),
+    the same faces shuffled (every warp adds straight into the grid), on
+    stencil tails (chip_smoke.tail_lattice) in the tiles, and on fewer
+    tails than ops/splat.py's TILE_MIN_POINTS (the kernel with one thread
+    per point and node): each output within max(1e-5, n_max 2^-23) of its
+    largest entry (float sums in another order, n_max the most points on
+    one base cell), and as K5 reads it (chip_smoke.splat_coverage): the
+    covered cells (w > 1e-15) the same but at cells whose plain weight
+    lies within 2x of 1e-15, acc / w and the unit normal on the cells both
+    cover within the same tolerance."""
+    pts, vals, g = _splat_shape(dev, shape)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    before = _build.launch_counts().get(ksplat.KERNEL, 0)
+    out = ksplat.splat(pts, vals, g, g / 2.0, branch_counts=counts)
+    assert _build.launch_counts()[ksplat.KERNEL] == before + 1
+    ref = ksplat.splat_plain(pts, vals, g, g / 2.0)
+    tile, direct = counts.tolist()
+    assert tile + direct == -(-len(pts) // 32)      # counted per warp
+    if shape in ("torso shuffled", "tails, few"):
+        assert tile == 0
+    else:      # the lattice's runs of sites: a third of its warps span two
+        assert len(pts) >= ksplat.TILE_MIN_POINTS
+        assert tile > (direct if shape == "torso" else 0)
+    tol = max(1e-5, chip_smoke.splat_n_max(pts, g, True) * 2.0 ** -23)
+    for a, b in zip(out, ref):
+        assert _rel_err(a, b) <= tol
+    cover = chip_smoke.splat_coverage(out, ref, vals)
+    assert cover["differ"] == cover["threshold"]
+    assert cover["velocity"] <= tol and cover["normal"] <= tol
+
+
+def test_splat_kernel_info(dev):
+    """K4 as built, at CH = 6 and CH = 3: no spills, two blocks per SM."""
+    for name, v in ksplat.kernel_info().items():
+        assert v["spill_bytes"] == 0, name
+        assert v["blocks_per_sm"] >= 2, name
 
 
 def _sand_set(dev, t=2000, seed=0):

@@ -2,7 +2,10 @@
 package: the plain version against stepping.rasterize_to_grid and against
 the Pallas column kernel in interpret mode (splat_columns_fused), on
 random points that include points with base G - 3 (dropped whole by the
-reference's asymmetric bounds check) and points below 0."""
+reference's asymmetric bounds check) and points below 0; on stencil tails
+read as K5 reads them (the covered cells and acc / w); and the plain
+version's fields against the same points in another order, the premise
+of the kernel's per-block tile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,6 +13,9 @@ import pytest
 import torch
 
 from test_torch_core import t
+from test_torch_cuda import _torso_faces
+
+import chip_smoke
 
 from mpmavatar_tpu.core import stepping as jstep
 from mpmavatar_tpu.core import types as jtypes
@@ -107,3 +113,62 @@ def test_splat_rejects_bad_shapes():
         tsplat.splat(torch.zeros((4, 2)), torch.zeros((4, 3)), 8, 4.0)
     with pytest.raises(ValueError):
         tsplat.splat(torch.zeros((4, 3)), torch.zeros((5, 3)), 8, 4.0)
+
+
+def _as_torch(out):
+    return tuple(torch.from_numpy(np.array(o)) for o in out)
+
+
+def test_splat_plain_reads_stencil_tails_as_jax():
+    """Stencil tails (chip_smoke.tail_lattice: cells that only tails
+    reach, weights down to ~1e-19, thousands between 1e-12 and 1e-6 and
+    a dozen within 2x of K5's coverage threshold 1e-15): the plain version
+    against rasterize_to_grid as K5 reads the fields
+    (chip_smoke.splat_coverage): the covered cells (w > 1e-15) the same
+    but at cells whose reference weight lies within 2x of 1e-15, and on the
+    cells both cover acc / w within TOL_SCATTER of max |velocity| and the
+    unit normal within TOL_SCATTER times its conditioning, w / |acc_n|
+    (each a ratio of two float32 sums of at most 3 terms)."""
+    pts, vals = chip_smoke.tail_lattice(8, G)
+    ref = _as_torch(jstep.rasterize_to_grid(_cfg(), jnp.asarray(pts),
+                                            jnp.asarray(vals), G ** 3))
+    out = tsplat.splat(t(pts), t(vals), G, G / 2.0)
+    w_ref = ref[1]
+    assert bool(((w_ref > 0) & (w_ref < 1e-12)).any())
+    assert int(((w_ref >= 1e-12) & (w_ref < 1e-6)).sum()) >= 100
+    cover = chip_smoke.splat_coverage(out, ref, t(vals))
+    assert cover["differ"] == cover["threshold"]
+    assert cover["velocity"] <= TOL_SCATTER
+    assert cover["normal"] <= TOL_SCATTER
+
+
+@pytest.mark.parametrize("shape", ["torso", "tails"])
+def test_splat_plain_does_not_depend_on_point_order(shape):
+    """The kernel sums each warp's points in a shared-memory tile and sends
+    the tiles to the grid in no fixed order, so its fields may differ from
+    the plain version's only by the order of the sums.  The plain version
+    on the same points in a seeded random order: each output within
+    n 2^-23 of its largest entry, n the most terms on one cell (a float32
+    sum of n terms in another order moves by at most (n - 1) 2^-24 of the
+    sum of their magnitudes), and as K5 reads it: the covered cells the
+    same but within 2x of 1e-15, acc / w and the normal within the same
+    tolerance.  On the posed body's 20,736 faces at 128^3 (its pole rings
+    pile up to 1,204 points on one cell) and on stencil tails."""
+    if shape == "torso":
+        pts, vals = _torso_faces("cpu")
+        g = 128
+    else:
+        pts, vals = (t(a) for a in chip_smoke.tail_lattice(8, G))
+        g = G
+    perm = torch.randperm(len(pts), generator=torch.Generator().manual_seed(0))
+    ref = tsplat.splat_plain(pts, vals, g, g / 2.0)
+    out = tsplat.splat_plain(pts[perm], vals[perm], g, g / 2.0)
+    base = torch.floor(pts * (g / 2.0) - 0.5).long()
+    n_terms = int(torch.bincount(
+        tsplat.flat_indices(base, g).reshape(-1).clamp(0, g ** 3 - 1)).max())
+    tol = n_terms * 2.0 ** -23
+    for a, b in zip(out, ref):
+        assert _rel(a, b) <= tol
+    cover = chip_smoke.splat_coverage(out, ref, vals)
+    assert cover["differ"] == cover["threshold"]
+    assert cover["velocity"] <= tol and cover["normal"] <= tol

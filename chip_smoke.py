@@ -135,7 +135,29 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      more substeps and the peak memory; then the scene cut to a 48 x 48
      cloth and 64^3 with the body at full width, 10 substeps on the kernel
      path against the plain path on the CPU, beside two wrong paths (the
-     body held still; collider friction 0).
+     body held still; collider friction 0);
+ 11. the stage-2 and stage-4 tools: data/make_synthetic_actorshq's
+     capture at its defaults (9 ring cameras x 4 frames, 1500 x 1000, the
+     50,244-face body, the teacher through K6), timed; the stage-2 CLI
+     (train/train_appearance.py) on it for CLI_ITERS iterations with
+     --work_cap 8192 and --preload_device, the last camera held out,
+     load_mesh_avatar's 200,976 slots, one densification pass and test
+     evaluations after the first and the last step, with the launch
+     counters reset just before and read just after (2 K6 and 2 K7
+     launches per step; the test views' tile path launches none): the
+     losses finite, zero overflow, the densified avatar with a splat on
+     every face, the held-out L1 falling and PSNR rising by more than
+     through K7 with its colour rows zeroed; ms per step and per test
+     view, peak memory; the saved checkpoint reloaded into a fresh avatar
+     renders the trained avatar's test view; the host's ms per sample
+     with and without --preload_device and a profile of a few steps; stage
+     4 (train/evaluate.py::render_eval_sequence) on the capture's tracked
+     meshes at AO 256^2 with the gray start and with the checkpoint, the
+     bake's and the render's ms per frame and the bake's peak memory, the
+     bake on the card against the CPU at AO_CUT^2; the CLI at a cut size
+     (CUT) on the card against the CPU; the metrics CLI
+     (train/eval_metrics.py) over both trees with seeded LPIPS weights,
+     every metric finite and the checkpoint's PSNR above the gray start's.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -298,6 +320,27 @@ MAT_CONTACT_R = 0.22
 POSE_FRAMES, POSE_CPU_EVERY = 2, 16
 AVATAR_REL_TOL, KNN_TIE_REL, POSE_MOVE_MIN = 1e-5, 1e-5, 1e-3
 POSE_CUT = dict(nx=48, grid=64)
+
+# the stage-2 and stage-4 tools (phase 11): data/make_synthetic_actorshq's
+# capture at its defaults, the stage-2 CLI on it for CLI_ITERS iterations
+# with one densification pass (at CLI_DENSIFY) and test evaluations after
+# the first and the last step (the pass at CLI_GRAD_THRESHOLD);
+# CLI_WARM steps left out of the steady
+# ms/step; the reloaded checkpoint's render within CKPT_TOL of the largest
+# value (the same float32 arrays through the PLY); the bake on the card
+# against the CPU at AO_CUT^2 per texel within AO_TOL (the same float32
+# formulas, the occupancy counts exact); the CLI at CUT on the card against
+# the CPU, its losses and test L1 and PSNR within CUT_TOL relative
+CLI_ITERS, CLI_DENSIFY, CLI_WARM, CLI_PROFILE_STEPS = 30, 10, 2, 3
+# the default threshold (2e-4) clones and splits nothing in 10 steps from
+# the gray start (an H100 run): a tenth of it makes the pass act
+CLI_GRAD_THRESHOLD = 2e-5
+SAMPLE_REPS = 20
+CKPT_TOL = 1e-6
+AO_CUT, AO_TOL = 64, 1e-5
+CUT = dict(n_frames=2, n_cams=3, width=96, height=64, mesh=(20, 18),
+           work_cap=64)
+CUT_ITERS, CUT_TOL = 4, 1e-5
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -2030,6 +2073,384 @@ def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
     return ms_sub, launches
 
 
+def cli_argv(cap, model_path, n_cams: int, n_frames: int, iterations: int,
+             extra=()) -> list:
+    """The stage-2 CLI's flags for the capture under ``cap``: its last
+    camera held out, every frame in both windows."""
+    return ["--dataset_dir", f"{cap}/dataset", "--trained_model_path",
+            f"{cap}/tracked", "--uv_path", f"{cap}/tracked/uv.obj",
+            "--model_path", str(model_path), "--test_camera_index",
+            str(n_cams - 1), "--train_frame_start_num", "0", str(n_frames),
+            "--test_frame_start_num", "0", str(n_frames), "--iterations",
+            str(iterations), *extra]
+
+
+def run_cli(device, argv, step_ms=None, view_ms=None, patch=None) -> dict:
+    """The stage-2 CLI's loop (train/train_appearance.py::train) on
+    ``device``; its log.  Given lists, each step's and each test view's
+    host ms (between synchronizes) are appended; ``patch`` replaces
+    segment_composite_gather."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from mpmavatar_tpu_torch.render import rasterizer
+    from mpmavatar_tpu_torch.train import train_appearance as tcli
+    real_step, real_eval = tcli.make_train_step, tcli.evaluate_appearance
+
+    def make_train_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    def evaluate(avatar, params, ds, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(avatar, params, ds, *a, **k)
+        torch.cuda.synchronize()
+        view_ms.append(1e3 * (time.perf_counter() - t0)
+                       / (len(ds.camera_list) * len(ds.frame_index)))
+        return out
+
+    with contextlib.ExitStack() as stack:
+        if step_ms is not None:
+            stack.enter_context(mock.patch.object(tcli, "make_train_step",
+                                                  make_train_step))
+        if view_ms is not None:
+            stack.enter_context(mock.patch.object(
+                tcli, "evaluate_appearance", evaluate))
+        if patch is not None:
+            stack.enter_context(mock.patch.object(
+                rasterizer, "segment_composite_gather", patch))
+        return tcli.train(tcli.parse_args(argv), device=device)
+
+
+def random_lpips_npz(path) -> None:
+    """LPIPS weights of the published shapes, seeded (the trained ones are
+    not in the repository)."""
+    import numpy as np
+    from mpmavatar_tpu_torch.utils.lpips import expected_weight_schema
+    rng = np.random.default_rng(0)
+    arrays = {}
+    for k, shape in expected_weight_schema().items():
+        if k.startswith("lin"):
+            arrays[k] = np.abs(rng.normal(0, 0.1, shape))
+        elif k.endswith("_b"):
+            arrays[k] = rng.normal(0, 0.05, shape)
+        else:
+            arrays[k] = rng.normal(0, 0.3 / np.sqrt(shape[1] * 9), shape)
+    np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
+
+
+def stage24_path(dev, smi) -> tuple:
+    """Phase 11, the stage-2 and stage-4 tools, in a git-ignored
+    directory removed afterwards.  Returns (steady ms per CLI step, the
+    CLI run's launches)."""
+    import shutil
+    work = REPO / "output" / "chip_smoke_stage24"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return _stage24(dev, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _stage24(dev, smi, work) -> tuple:
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import OptimizationParams, Scene
+    from mpmavatar_tpu_torch.data import make_synthetic_actorshq as synth
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.render import camera_arrays
+    from mpmavatar_tpu_torch.render import avatar_model as am
+    from mpmavatar_tpu_torch.render.ao import bake_ao, load_uv_chart
+    from mpmavatar_tpu_torch.train import appearance as tapp
+    from mpmavatar_tpu_torch.train import eval_metrics
+    from mpmavatar_tpu_torch.train import evaluate as teval
+    from mpmavatar_tpu_torch.train import train_appearance as tcli
+    from mpmavatar_tpu_torch.utils.io import write_obj
+
+    t_phase = time.perf_counter()
+    # (a) the capture
+    cap = work / "capture"
+    t0 = time.perf_counter()
+    summary = synth.make_capture(str(cap), device=dev)
+    n_cams, n_frames = summary["n_cams"], summary["n_frames"]
+    width, height = summary["wh"]
+    n_faces = summary["n_faces"]
+    test_cam = n_cams - 1
+    tracked, uv = cap / "tracked", str(cap / "tracked" / "uv.obj")
+    print(f"capture: the synthetic capture ({n_cams} cameras x {n_frames} "
+          f"frames, {width}x{height}, {n_faces} faces; the teacher's "
+          f"renders up to {summary['max_items']} phase-2 items of "
+          f"{synth.WORK_CAP}, no overflow) in {time.perf_counter() - t0:.2f} "
+          f"s")
+    if n_faces != 50244 or (width, height) != (1500, 1000):
+        raise AssertionError(f"capture: {n_faces} faces at {width}x{height}")
+
+    # (b) the stage-2 CLI: counted launches, timed steps and test views
+    extra = ["--work_cap", str(synth.WORK_CAP), "--preload_device",
+             "--test_iterations", "1", str(CLI_ITERS),
+             "--densify_from_iter", "0", "--densification_interval",
+             str(CLI_DENSIFY), "--densify_until_iter", str(CLI_DENSIFY + 1),
+             "--densify_grad_threshold", str(CLI_GRAD_THRESHOLD)]
+    argv = cli_argv(cap, work / "model", n_cams, n_frames, CLI_ITERS, extra)
+    step_ms, view_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    log = run_cli(dev, argv, step_ms, view_ms)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    avatar, params = log["avatar"], log["params"]
+    cap_slots = params.splats.capacity
+    want = {kcomp.KERNEL: 2 * CLI_ITERS, kcomp.KERNEL_BWD: 2 * CLI_ITERS}
+    if launches != want:
+        raise AssertionError(f"stage-2 CLI: launches {launches}, expected "
+                             f"{want} (the test views' tile path launches "
+                             f"none)")
+    if not np.isfinite(log["loss"]).all():
+        raise AssertionError(f"stage-2 CLI: losses {log['loss']}")
+    if log["big_overflow"] or log["work_overflow"]:
+        raise AssertionError(f"stage-2 CLI: overflow big "
+                             f"{log['big_overflow']} work "
+                             f"{log['work_overflow']}")
+    alive = params.splats.alive
+    per_face = torch.bincount(params.splats.binding[alive],
+                              minlength=n_faces)
+    dens = log["densify"]
+    if [d["iter"] for d in dens] != [CLI_DENSIFY] or \
+            dens[0]["alive"] == n_faces or int(per_face.min()) < 1:
+        raise AssertionError(f"stage-2 CLI: densification {dens}, fewest "
+                             f"alive on a face {int(per_face.min())}")
+    first, last = log["tests"]
+    steady = step_ms[CLI_WARM:]
+    ms_step = statistics.median(steady)
+    print(f"stage-2 CLI ({CLI_ITERS} iterations, {cap_slots} splat slots, "
+          f"work_cap {synth.WORK_CAP}, --preload_device, test camera "
+          f"{test_cam}): launches {launches}; ms/step median {ms_step:.4f} "
+          f"(range {min(steady):.4f}-{max(steady):.4f}, steps "
+          f"{CLI_WARM + 1}-{CLI_ITERS}; the first two "
+          f"{[round(v, 3) for v in step_ms[:CLI_WARM]]}); ms per test view "
+          f"{[round(v, 3) for v in view_ms]} (the tile path); the loop "
+          f"{cli_s:.2f} s; peak allocated {peak / 2 ** 30:.3f} GiB; "
+          f"densification at iteration {CLI_DENSIFY}: alive {n_faces} -> "
+          f"{dens[0]['alive']}, fewest alive on a face "
+          f"{int(per_face.min())}; zero overflow")
+    print(f"stage-2 CLI: L1 per step {[round(v, 5) for v in log['l1']]}; "
+          f"held-out after step 1: L1 {first['l1']:.6f} PSNR "
+          f"{first['psnr']:.4f}; after step {CLI_ITERS}: L1 "
+          f"{last['l1']:.6f} PSNR {last['psnr']:.4f}")
+    wrong = run_cli(dev, cli_argv(cap, work / "model_wrong", n_cams,
+                                  n_frames, CLI_ITERS, extra),
+                    patch=wrong_k7("no_colour"))
+    gain = last["psnr"] - first["psnr"]
+    w_first, w_last = wrong["tests"]
+    gain_w = w_last["psnr"] - w_first["psnr"]
+    print(f"stage-2 CLI: held-out PSNR gain {gain:.4f} dB, L1 "
+          f"{first['l1'] - last['l1']:.6f} lower; wrong path (K7 with its "
+          f"colour rows zeroed): PSNR gain {gain_w:.4f} dB")
+    if not (gain > max(gain_w, 0.0) and last["l1"] < first["l1"]):
+        raise AssertionError(f"stage-2 CLI: the held-out PSNR rose by "
+                             f"{gain:.4f} dB, not beyond the wrong path's "
+                             f"{gain_w:.4f}, or the L1 did not fall")
+
+    # (c) the checkpoint: reloaded into a fresh avatar, one test view
+    scene = Scene(tcli.extract_dataclass(tcli.parse_args(argv),
+                                         tcli.ModelParams))
+    avatar2, gray = am.load_mesh_avatar(str(tracked), uv, device=dev)
+    loaded = am.load_avatar_checkpoint(log["checkpoints"][-1], gray)
+    batch = scene.test_dataset.load_frame(0, 0)
+    t_view = batch["frame_idx"]
+    bg = torch.zeros(3, device=dev)
+
+    @torch.no_grad()
+    def view(av, p, sh=1):
+        img, _ = tapp.render_avatar_frame(
+            av, p, av.select_verts(p, t_view),
+            av.tensor("ao_maps", dev)[t_view], batch["cam"], test_cam, sh,
+            bg, False)
+        return img
+
+    a, b = view(avatar2, loaded), view(avatar, params)
+    err = float((a - b).abs().max()) / float(b.abs().max())
+    n_alive = int(loaded.splats.alive.sum())
+    print(f"checkpoint {Path(log['checkpoints'][-1]).name}: {n_alive} "
+          f"splats reloaded into a fresh avatar; its test view against the "
+          f"trained avatar's: max |diff| / max = {err:.3e} (tol "
+          f"{CKPT_TOL:.0e})")
+    if not (err <= CKPT_TOL and n_alive == int(alive.sum())):
+        raise AssertionError("checkpoint: the reloaded avatar renders "
+                             "otherwise")
+
+    # the host's ms per sample, with and without the device cache, and a
+    # profile of a few steps at the CLI's shape
+    ds = scene.train_dataset
+    rng = np.random.default_rng(0)
+
+    def per_sample(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SAMPLE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / SAMPLE_REPS
+
+    plain_ms = per_sample(lambda: tcli.sample_batch(ds, rng, dev))
+    cached = tcli.DeviceCachedDataset(ds, dev)
+    for _ in range(300):
+        cached.sample(rng)
+    cached_ms = per_sample(lambda: cached.sample(rng))
+    opt = OptimizationParams()
+    step = tapp.make_train_step(
+        avatar, opt, tapp.make_optimizer(opt, ds.scene_radius, params), 1,
+        False, tile_capacity=512, work_cap=synth.WORK_CAP)
+    b2 = cached.sample(rng)
+    args = (b2["frame_idx"], b2["camera_idx"], camera_arrays(b2["cam"], dev),
+            b2["rgb"], b2["msk"], avatar.tensor("ao_maps", dev)[
+                b2["frame_idx"]], width, height)
+    busy_s, prof_wall, rows = profile_device(
+        lambda: [step(params, *args) for _ in range(CLI_PROFILE_STEPS)])
+    (OUT / "chip_smoke_profile_stage2_cli.txt").write_text(
+        "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
+                  for key, us, calls in rows))
+    print(f"stage-2 CLI: host ms per sample {plain_ms:.3f} (decode + copy "
+          f"to the card) vs {cached_ms:.4f} with --preload_device; "
+          f"{CLI_PROFILE_STEPS} profiled steps: device busy "
+          f"{1e3 * busy_s / CLI_PROFILE_STEPS:.3f} ms/step of "
+          f"{1e3 * prof_wall / CLI_PROFILE_STEPS:.3f}, idle "
+          f"{100 * (1 - busy_s / prof_wall):.1f}%; top: "
+          + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{calls}"
+                      for key, us, calls in rows[:6]))
+
+    # (d) stage 4: the capture's tracked meshes, AO baked at 256^2, the
+    # held-out camera rendered with the gray start and with the checkpoint
+    faces = avatar2.tensor("faces", dev)
+    verts = [np.load(tracked / f"params_{t}.npz")["vertices"]
+             for t in range(n_frames)]
+    chart = load_uv_chart(uv, resolution=256)
+    vt = [torch.as_tensor(v, device=dev) for v in verts]
+    bake_ao(vt[0], faces, chart.face_idx, chart.bary, chart.texel_ij)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bake_ms = [timed_ms(lambda v=v: bake_ao(
+        v, faces, chart.face_idx, chart.bary, chart.texel_ij), reps=1)
+        for v in vt]
+    bake_peak = torch.cuda.max_memory_allocated() - base
+    aos = [bake_ao(v, faces, chart.face_idx, chart.bary, chart.texel_ij)
+           for v in vt]
+
+    @torch.no_grad()
+    def frame(v, ao):
+        img, _ = tapp.render_avatar_frame(avatar2, loaded, v, ao,
+                                          batch["cam"], test_cam, 3, bg,
+                                          False)
+        return img
+
+    render_ms = [timed_ms(lambda v=v, ao=ao: frame(v, ao))
+                 for v, ao in zip(vt, aos)]
+    trees = {}
+    for name, p in (("gray", gray), ("final", loaded)):
+        out = work / f"eval_{name}"
+        (out / "uvmesh").mkdir(parents=True)
+        for i, v in enumerate(verts):
+            write_obj(str(out / "uvmesh" / f"{i:03d}.obj"), v,
+                      avatar2.faces)
+        t0 = time.perf_counter()
+        teval.render_eval_sequence(avatar2, p, scene, str(out / "uvmesh"),
+                                   str(out), uv, active_sh_degree=3,
+                                   skip_video=name == "gray")
+        trees[name] = (out, time.perf_counter() - t0)
+    names = sorted(q.name for q in trees["final"][0].iterdir())
+    if names != sorted(["aomap", "uvmesh", f"Cam{test_cam:03d}"]):
+        raise AssertionError(f"stage 4: the tree holds {names}")
+    chart_c = load_uv_chart(uv, resolution=AO_CUT)
+    t0 = time.perf_counter()
+    ao_cpu = bake_ao(torch.as_tensor(verts[0]), avatar2.faces,
+                     chart_c.face_idx, chart_c.bary, chart_c.texel_ij,
+                     resolution=AO_CUT)
+    cpu_s = time.perf_counter() - t0
+    ao_card = bake_ao(vt[0], faces, chart_c.face_idx, chart_c.bary,
+                      chart_c.texel_ij, resolution=AO_CUT)
+    ao_err = float((ao_card.cpu() - ao_cpu).abs().max())
+    print(f"stage 4 ({n_frames} frames, AO 256^2 over "
+          f"{len(chart.face_idx)} texel entries, camera {test_cam}): bake "
+          f"ms per frame {[round(v, 3) for v in bake_ms]}, peak "
+          f"{bake_peak / 2 ** 30:.3f} GiB above the "
+          f"{base / 2 ** 30:.3f} GiB held; render ms per frame (tile path) "
+          f"{[round(v, 3) for v in render_ms]}; render_eval_sequence "
+          f"{trees['gray'][1]:.2f} s (gray start), {trees['final'][1]:.2f} "
+          f"s (checkpoint, with the video step); the bake at {AO_CUT}^2 on "
+          f"the card against the CPU ({cpu_s:.2f} s there): max |diff| "
+          f"{ao_err:.3e} (tol {AO_TOL:.0e})")
+    if not ao_err <= AO_TOL:
+        raise AssertionError("stage 4: the bake on the card disagrees with "
+                             "the CPU")
+
+    # the CLI at a cut size on the card against the CPU
+    cut = work / "cut"
+    synth.make_capture(str(cut), device="cpu", **CUT)
+    runs = {}
+    for d in (dev, "cpu"):
+        runs[str(d)] = run_cli(d, cli_argv(
+            cut, work / f"cut_{torch.device(d).type}", CUT["n_cams"],
+            CUT["n_frames"], CUT_ITERS,
+            ["--work_cap", str(CUT["work_cap"]), "--test_iterations", "1",
+             str(CUT_ITERS)]))
+    card, cpu = runs[str(dev)], runs["cpu"]
+    errs = [abs(x - y) / abs(y) for x, y in zip(card["loss"], cpu["loss"])]
+    for ta, tb in zip(card["tests"], cpu["tests"]):
+        errs += [abs(ta[k] - tb[k]) / abs(tb[k]) for k in ("l1", "psnr")]
+    print(f"stage-2 CLI at {CUT['width']}x{CUT['height']} (mesh "
+          f"{CUT['mesh'][0]}x{CUT['mesh'][1]}, {CUT_ITERS} iterations) on "
+          f"the card against the CPU: losses {card['loss']} vs "
+          f"{cpu['loss']}, tests {card['tests']} vs {cpu['tests']}; max "
+          f"rel err {max(errs):.3e} (tol {CUT_TOL:.0e})")
+    if not max(errs) <= CUT_TOL:
+        raise AssertionError("the cut-size CLI on the card disagrees with "
+                             "the CPU")
+
+    # (e) the metrics CLI over both trees, seeded LPIPS weights
+    weights = work / "lpips_random.npz"
+    random_lpips_npz(weights)
+    scores = {}
+    for name, (out, _) in trees.items():
+        t0 = time.perf_counter()
+        eval_metrics.main([
+            "--output_path", str(out), "--mesh_path", uv, "--data_path",
+            str(cap / "dataset" / "ActorsHQ" / "Actor01" / "Sequence1" /
+                "4x"), "--start_idx", "0", "--num_timesteps", str(n_frames),
+            "--cameras", f"Cam{test_cam:03d}", "--lpips_weights",
+            str(weights), "--device", dev.type])
+        host_s = time.perf_counter() - t0
+        m = {k: np.asarray(v) for f in ("geo_metric.npz", "app_metric.npz")
+             for k, v in np.load(out / f).items()}
+        scores[name] = m
+        print(f"metrics CLI ({name}): "
+              + ", ".join(f"{k} {float(v.mean()):.6f}"
+                          for k, v in m.items())
+              + f"; {host_s:.2f} s on the host")
+        if sorted(m) != ["CD", "F-Score", "LPIPS", "PSNR", "SSIM"] or \
+                not all(np.isfinite(v).all() for v in m.values()):
+            raise AssertionError(f"metrics CLI ({name}): {m}")
+    if not scores["final"]["PSNR"].mean() > scores["gray"]["PSNR"].mean():
+        raise AssertionError("metrics CLI: the checkpoint's PSNR is not "
+                             "above the gray start's")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return ms_step, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2689,12 +3110,16 @@ def main() -> int:
     pose_ms, pose_launches = posed_body_path(dev, smi, scene_p, body_p,
                                              body_p_cpu, per_sub_a)
 
+    # ---- 11. the stage-2 and stage-4 tools ------------------------------
+    cli_ms, cli_launches = stage24_path(dev, smi)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
           f"ms/substep; render "
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
           + f" ms/frame; train step {train_ms:.4f} ms; material train step "
-          f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep on {smi}; "
+          f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep; stage-2 "
+          f"CLI step {cli_ms:.4f} ms on {smi}; "
           f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
@@ -2706,7 +3131,8 @@ def main() -> int:
                for name, (_, counts) in render.items()},
             "train_step": train_launches.get(entry["name"], 0),
             "material_train_step": mat_launches.get(entry["name"], 0),
-            "posed_body": pose_launches.get(entry["name"], 0)}
+            "posed_body": pose_launches.get(entry["name"], 0),
+            "stage2_cli": cli_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

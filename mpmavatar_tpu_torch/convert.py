@@ -16,7 +16,8 @@ densification statistics (``to_numpy`` takes them back), and
 package's AvatarParams pytree.  ``material_params_from_numpy`` sets a
 material trainer's D, E, H and its Adam state (optax's ``mu``, ``nu``,
 ``count``).  ``smplx_model_from_numpy`` and ``vposer_from_numpy`` carry
-the avatar's SMPL-X model and VPoser decoder.  Tests use these so both
+the avatar's SMPL-X model and VPoser decoder, ``lpips_params_from_numpy``
+the LPIPS network's weights.  Tests use these so both
 packages start from identical data.
 """
 
@@ -35,6 +36,7 @@ from .core.types import MPMModel, MPMState
 from .render.avatar_model import AvatarParams, MeshAvatar
 from .render.gaussians import DensifyState, GaussianParams
 from .render.rasterizer import CameraArrays
+from .utils.lpips import LPIPS
 
 _INT_FIELDS = ("selection", "faces")
 _DTYPES = {"binding": torch.int64, "alive": torch.bool}
@@ -186,3 +188,10 @@ def vposer_from_numpy(params: dict, device=None) -> VPoserDecoder:
             else np.asarray(params[k]["b"], np.float32))
         for k in w for p in ("weight", "bias")})
     return dec.to(resolve_device(device))
+
+
+def lpips_params_from_numpy(params: dict, device=None) -> LPIPS:
+    """The LPIPS network with the weights ``params`` (the npz layout of
+    ``utils/lpips.py``: conv{i}_w/conv{i}_b, lin{i}_w)."""
+    return LPIPS({k: np.asarray(v) for k, v in params.items()},
+                 device=device)

@@ -1,4 +1,7 @@
-"""Configuration of the port's training stages."""
+"""Configuration and capture loaders of the port."""
 
 from .config import (ModelParams, OptimizationParams,  # noqa: F401
-                     add_dataclass_args, extract_dataclass)
+                     PipelineParams, add_dataclass_args, dump_config,
+                     extract_dataclass, load_config)
+from .datasets import (ActorsHQDataset, DRESS4DDataset,  # noqa: F401
+                       PreloadedDataset, Scene)

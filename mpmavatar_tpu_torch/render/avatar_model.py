@@ -4,9 +4,9 @@ loaders).
 
 ``AvatarParams`` holds the learnables of the appearance stage (splats,
 per-frame vertex offsets, per-camera colour calibration, the shadow UNet);
-``MeshAvatar`` the static assets.  The checkpoint pair
-(``save_avatar_checkpoint``/``load_avatar_checkpoint``) is not ported: it
-waits for the port of utils/io.py.
+``MeshAvatar`` the static assets.  ``save_avatar_checkpoint`` and
+``load_avatar_checkpoint`` write and read the JAX package's checkpoint
+files, so either package loads the other's.
 """
 
 from __future__ import annotations
@@ -193,3 +193,72 @@ def load_mesh_avatar(trained_model_path: str, uv_path: str,
         cam_c=torch.as_tensor(cam_c, device=device),
         shadow=shadow)
     return avatar, params
+
+
+def save_avatar_checkpoint(path: str, params: AvatarParams,
+                           avatar: MeshAvatar):
+    """The checkpoint directory of the JAX package's
+    ``save_avatar_checkpoint``: ``point_cloud.ply`` (the alive splats in
+    the 3DGS layout, with ``binding_0``), ``verts_offset.npy``,
+    ``cams.npz`` (cam_m, cam_c) and ``shadow_net.npz`` (the UNet's
+    arrays under their names).  ``avatar`` is unused, as in the JAX
+    package."""
+    from ..utils.io import as_numpy, write_ply_gaussians
+    os.makedirs(path, exist_ok=True)
+    s = params.splats
+    alive = as_numpy(s.alive)
+    write_ply_gaussians(
+        os.path.join(path, "point_cloud.ply"),
+        as_numpy(s.xyz)[alive], as_numpy(s.features_dc)[alive],
+        as_numpy(s.features_rest)[alive], as_numpy(s.opacity)[alive],
+        as_numpy(s.scaling)[alive], as_numpy(s.rotation)[alive],
+        binding=as_numpy(s.binding)[alive])
+    np.save(os.path.join(path, "verts_offset.npy"),
+            as_numpy(params.verts_offset))
+    np.savez(os.path.join(path, "cams.npz"), cam_m=as_numpy(params.cam_m),
+             cam_c=as_numpy(params.cam_c))
+    np.savez(os.path.join(path, "shadow_net.npz"),
+             **{k: as_numpy(v) for k, v in params.shadow.items()})
+
+
+def load_avatar_checkpoint(path: str, params: AvatarParams) -> AvatarParams:
+    """``params`` with a checkpoint's splats in its first n slots
+    (``alive = arange(capacity) < n``; the other slots keep their
+    values), and its offsets, colour calibration and shadow UNet, on the
+    device of ``params``."""
+    from ..utils.io import read_ply_gaussians
+    ply = read_ply_gaussians(os.path.join(path, "point_cloud.ply"))
+    n = len(ply["xyz"])
+    s = params.splats
+    dev = s.xyz.device
+    if n > s.capacity:
+        raise ValueError(f"{path}: {n} splats do not fit a capacity of "
+                         f"{s.capacity}")
+
+    def put(arr, new):
+        out = arr.detach().clone()
+        out[:n] = torch.as_tensor(np.array(new).reshape(
+            (n,) + tuple(arr.shape[1:])), dtype=arr.dtype, device=dev)
+        return out
+
+    splats = G.GaussianParams(
+        xyz=put(s.xyz, ply["xyz"]),
+        features_dc=put(s.features_dc, ply["features_dc"]),
+        features_rest=put(s.features_rest, ply["features_rest"]),
+        scaling=put(s.scaling, ply["scaling"]),
+        rotation=put(s.rotation, ply["rotation"]),
+        opacity=put(s.opacity, ply["opacity"]),
+        binding=put(s.binding, ply["binding"]),
+        alive=torch.arange(s.capacity, device=dev) < n)
+    with np.load(os.path.join(path, "cams.npz")) as cams, \
+            np.load(os.path.join(path, "shadow_net.npz")) as shadow:
+        cam_m, cam_c = cams["cam_m"], cams["cam_c"]
+        shadow = {k: torch.as_tensor(shadow[k], device=dev)
+                  for k in shadow.files}
+    return AvatarParams(
+        splats=splats,
+        verts_offset=torch.as_tensor(
+            np.load(os.path.join(path, "verts_offset.npy")), device=dev),
+        cam_m=torch.as_tensor(cam_m, device=dev),
+        cam_c=torch.as_tensor(cam_c, device=dev),
+        shadow=shadow)

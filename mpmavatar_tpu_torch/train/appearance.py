@@ -1,14 +1,14 @@
 """Stage-2 appearance training, port of mpmavatar_tpu/train/appearance.py:
 the avatar render (``shaded_colors``, ``render_avatar_frame``), the
-per-group Adam optimizer, the stage-2 loss and the train step.
+per-group Adam optimizer, the stage-2 loss, the train step and the
+held-out evaluation (``evaluate_appearance``).
 
 One train step poses the mesh, runs the shadow UNet, shades SH colours,
 splats (K6 forward, K7 backward on the card), and minimises
-L1 + DSSIM + the regularizer set with one Adam group per learning rate.
-The view-space gradient that drives densification comes out of the same
-backward (``aux["vgrad"]``).  LPIPS is not in the loop (its weights are an
-external artifact; the JAX bench runs without it), and
-``evaluate_appearance`` waits for the port of data/datasets.py.
+L1 + DSSIM (+ lambda_lpips * LPIPS when an ``lpips_fn`` is given) + the
+regularizer set with one Adam group per learning rate.  The view-space
+gradient that drives densification comes out of the same backward
+(``aux["vgrad"]``).
 
 Parameters are updated in place: the optimizer holds the leaf tensors of
 ``AvatarParams``, where the JAX package returns new parameters and an
@@ -18,14 +18,16 @@ optax state.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ..render import (camera_arrays, convert_sh_colors, grid_sample_bilinear,
                       rasterize, shadow_unet_apply)
 from ..render import gaussians as G
 from ..render.avatar_model import AvatarParams, MeshAvatar
-from ..utils.losses import l1_loss, ssim
+from ..utils.losses import l1_loss, psnr, ssim
 
 SPLAT_FLOATS = ("xyz", "features_dc", "features_rest", "scaling",
                 "rotation", "opacity")
@@ -116,9 +118,9 @@ def render_avatar_frame(avatar: MeshAvatar, params: AvatarParams,
 
 @dataclasses.dataclass
 class AppearanceLossWeights:
-    """Weights of the stage-2 loss (the JAX package's defaults, without
-    the LPIPS term's)."""
+    """Weights of the stage-2 loss (the JAX package's defaults)."""
     dssim: float = 0.2
+    lpips: float = 0.2
     normal: float = 0.1
     opacity: float = 0.05
     iso: float = 20.0
@@ -144,11 +146,14 @@ def frame_loss(avatar: MeshAvatar, weights: AppearanceLossWeights,
                p: AvatarParams, m2d, verts, offset_rows, ao_map, ca,
                width: int, height: int, camera_idx, gt_rgb, gt_msk,
                active_sh_degree: int, bg, white_bkgd: bool,
-               tile_capacity: int, work_cap: int, chunk: int):
+               tile_capacity: int, work_cap: int, chunk: int,
+               lpips_fn=None):
     """The stage-2 loss for one (camera, frame) sample: render + L1/DSSIM
-    + the regularizer set (normal/opacity/iso/area/xyz/scale/offset).
-    ``verts`` carries the learnable offset; ``offset_rows`` is the frame's
-    slice of ``verts_offset`` for the optional offset term."""
+    (+ LPIPS through ``lpips_fn``) + the regularizer set
+    (normal/opacity/iso/area/xyz/scale/offset).  ``verts`` carries the
+    learnable offset; ``offset_rows`` is the frame's slice of
+    ``verts_offset`` for the optional offset term.  ``aux["lpips"]`` is
+    NaN when the term is disabled (0 would read as converged)."""
     rendering, out = render_avatar_frame(
         avatar, p, verts, ao_map, (ca, width, height), camera_idx,
         active_sh_degree, bg, white_bkgd, means2d_offset=m2d,
@@ -158,6 +163,10 @@ def frame_loss(avatar: MeshAvatar, weights: AppearanceLossWeights,
     ll1 = l1_loss(rendering, gt)
     ds = 1.0 - ssim(rendering, gt)
     loss = (1.0 - weights.dssim) * ll1 + weights.dssim * ds
+    lp = torch.full((), float("nan"), device=ll1.device)
+    if lpips_fn is not None:
+        lp = lpips_fn(rendering[None], gt[None])
+        loss = loss + weights.lpips * lp
     loss = loss + weights.normal * avatar.normal_loss(verts)
     loss = loss + weights.opacity * avatar.opacity_loss(p)
     loss = loss + weights.iso * avatar.iso_loss(verts)
@@ -171,7 +180,7 @@ def frame_loss(avatar: MeshAvatar, weights: AppearanceLossWeights,
     loss = loss + weights.scale * _masked_mean(scale_excess, visible)
     if weights.offset:
         loss = loss + weights.offset * torch.mean(torch.abs(offset_rows))
-    aux = {"l1": ll1.detach(), "dssim": ds.detach(),
+    aux = {"l1": ll1.detach(), "dssim": ds.detach(), "lpips": lp.detach(),
            "radii": out["radii"].detach(), "alpha": out["alpha"].detach(),
            "visible": visible, "big_overflow": out["big_overflow"],
            "work_overflow": out["work_overflow"], "n_items": out["n_items"]}
@@ -210,15 +219,17 @@ def apply_updates_float(optimizer: torch.optim.Optimizer,
 def make_loss_and_grads(avatar: MeshAvatar, opt, active_sh_degree: int,
                         white_bkgd: bool, weights=None,
                         tile_capacity: int = 512, work_cap: int = 0,
-                        chunk: int = 32):
+                        chunk: int = 32, lpips_fn=None):
     """fn(params, timestep, camera_idx, ca, gt_rgb, gt_msk, ao_map, width,
     height) -> (loss, aux, grads): the train step without its update.
 
     ``aux["vgrad"]`` is d(loss)/d(means2d) from the same backward, scaled
     to NDC units (x 0.5 W, 0.5 H) so the reference's
-    ``densify_grad_threshold`` applies unchanged."""
+    ``densify_grad_threshold`` applies unchanged.  ``lpips_fn`` (an
+    ``utils.lpips.LPIPS``) adds the lambda_lpips * LPIPS term."""
     weights = weights or AppearanceLossWeights(
-        dssim=opt.lambda_dssim, threshold_xyz=opt.threshold_xyz,
+        dssim=opt.lambda_dssim, lpips=opt.lambda_lpips,
+        threshold_xyz=opt.threshold_xyz,
         threshold_scale=opt.threshold_scale)
 
     def loss_and_grads(params: AvatarParams, timestep: int, camera_idx, ca,
@@ -232,7 +243,7 @@ def make_loss_and_grads(avatar: MeshAvatar, opt, active_sh_degree: int,
                 avatar, weights, p, m2d, verts, p.verts_offset[timestep],
                 ao_map, ca, width, height, camera_idx, gt_rgb, gt_msk,
                 active_sh_degree, bg, white_bkgd, tile_capacity, work_cap,
-                chunk)
+                chunk, lpips_fn)
 
         m2d0 = torch.zeros((params.splats.capacity, 2), device=dev)
         (loss, aux), grads, vgrad = float_leaf_grads(params, loss_fn, m2d0)
@@ -246,14 +257,14 @@ def make_loss_and_grads(avatar: MeshAvatar, opt, active_sh_degree: int,
 def make_train_step(avatar: MeshAvatar, opt, optimizer: torch.optim.Adam,
                     active_sh_degree: int, white_bkgd: bool, weights=None,
                     tile_capacity: int = 512, work_cap: int = 0,
-                    chunk: int = 32):
+                    chunk: int = 32, lpips_fn=None):
     """step(params, timestep, camera_idx, ca, gt_rgb, gt_msk, ao_map,
     width, height) -> (loss, aux): one optimization step, updating the
     parameters that ``optimizer`` holds in place (see
-    ``make_loss_and_grads`` for ``aux["vgrad"]``)."""
+    ``make_loss_and_grads`` for ``aux["vgrad"]`` and ``lpips_fn``)."""
     loss_and_grads = make_loss_and_grads(
         avatar, opt, active_sh_degree, white_bkgd, weights, tile_capacity,
-        work_cap, chunk)
+        work_cap, chunk, lpips_fn)
 
     def train_step(params: AvatarParams, *args):
         loss, aux, grads = loss_and_grads(params, *args)
@@ -261,6 +272,46 @@ def make_train_step(avatar: MeshAvatar, opt, optimizer: torch.optim.Adam,
         return loss, aux
 
     return train_step
+
+
+@torch.no_grad()
+def evaluate_appearance(avatar: MeshAvatar, params: AvatarParams,
+                        test_dataset, test_camera_index,
+                        active_sh_degree: int, white_bkgd: bool,
+                        lpips_fn=None, tile_capacity: int = 512,
+                        max_items: Optional[int] = None):
+    """Held-out evaluation: every (test camera, frame) pair of
+    ``test_dataset`` rendered through the tile path (``work_cap`` 0) on
+    the device of ``params``; the mean L1 and PSNR against the masked GT
+    (+ LPIPS when ``lpips_fn`` is given), as floats."""
+    dev = params.verts_offset.device
+    bg = torch.full((3,), 1.0 if white_bkgd else 0.0, device=dev)
+    l1s, psnrs, lps = [], [], []
+    pairs = [(ci, fi) for ci in range(len(test_dataset.camera_list))
+             for fi in range(len(test_dataset.frame_index))]
+    if max_items is not None:
+        pairs = pairs[:max_items]
+    for ci, fi in pairs:
+        batch = test_dataset.load_frame(ci, fi)
+        cam = batch["cam"]
+        t = batch["frame_idx"]
+        cam_idx = test_camera_index[batch["camera_idx"]]
+        rendering, _ = render_avatar_frame(
+            avatar, params, avatar.select_verts(params, t),
+            avatar.tensor("ao_maps", dev)[t], cam, cam_idx,
+            active_sh_degree, bg, white_bkgd, tile_capacity=tile_capacity)
+        rendering = torch.clamp(rendering, 0.0, 1.0)
+        gt_rgb = torch.as_tensor(batch["rgb"], device=dev)
+        gt_msk = torch.as_tensor(batch["msk"], device=dev)
+        gt = gt_rgb * gt_msk + (1.0 - gt_msk if white_bkgd else 0.0)
+        l1s.append(float(l1_loss(rendering, gt)))
+        psnrs.append(float(psnr(rendering, gt)))
+        if lpips_fn is not None:
+            lps.append(float(lpips_fn(rendering[None], gt[None])))
+    out = {"l1": float(np.mean(l1s)), "psnr": float(np.mean(psnrs))}
+    if lps:
+        out["lpips"] = float(np.mean(lps))
+    return out
 
 
 def viewspace_gradients(avatar, params, timestep, cam, camera_idx, gt_rgb,

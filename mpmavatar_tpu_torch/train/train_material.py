@@ -1,8 +1,12 @@
-"""Stage-3 material estimation from the command line (the training path of
-scripts/train_material.py):
+"""Stage-3 material estimation and the stage-4 evaluation from the
+command line (scripts/train_material.py):
 
     python -m mpmavatar_tpu_torch.train.train_material \\
         --tracked_verts_npz train.npz [--config cfg.json] [--device cpu]
+    python -m mpmavatar_tpu_torch.train.train_material \\
+        --tracked_verts_npz train.npz --run_eval [--skip_sim] \\
+        [--skip_render] [--skip_video] --dataset_dir DATA \\
+        --trained_model_path TRACKED --uv_path uv.obj --model_path AVATAR
 
 The npz holds train_verts (F+1, V, 3), smplx_verts (F+1, Vb, 3),
 smplx_faces, cloth_faces, first_frame_verts, num_joint_v and
@@ -11,12 +15,24 @@ flags' defaults (explicit flags still override).  Each step prints its
 loss and parameters; every ``--log_iters`` steps the best and last
 parameters are written to ``--output_dir`` (default
 ./output/material).
+
+With ``--run_eval`` it trains nothing: it simulates the test sequence
+(the npz named like ``--tracked_verts_npz`` with "train" replaced by
+"test") at the trainer's parameters into ``<output_dir>/uvmesh/%03d.obj``
+(merged with the tracked human layer when the npz has ``human_verts``,
+``cloth_v_idx`` and ``human_v_idx``), then bakes AO and renders the
+held-out cameras with the newest avatar checkpoint under
+``<model_path>/point_cloud`` (``train/evaluate.py::render_eval_sequence``)
+into ``<output_dir>``, the tree that ``train/eval_metrics.py`` reads.
+``--skip_sim`` reuses the meshes, ``--skip_render`` stops after them,
+``--skip_video`` writes no videos.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 
@@ -31,6 +47,12 @@ def parse_args(argv=None):
     add_dataclass_args(parser, OptimizationParams)
     parser.add_argument("--config", type=str, default=None,
                         help="JSON file whose values become flag defaults")
+    parser.add_argument("--run_eval", action="store_true")
+    parser.add_argument("--skip_sim", action="store_true",
+                        help="eval: reuse the existing uvmesh/*.obj")
+    parser.add_argument("--skip_render", action="store_true",
+                        help="eval: stop after the simulation")
+    parser.add_argument("--skip_video", action="store_true")
     parser.add_argument("--tracked_verts_npz", type=str, required=True)
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA device)")
@@ -44,6 +66,55 @@ def parse_args(argv=None):
             parser.error(f"unknown config keys in {pre.config}: {bad}")
         parser.set_defaults(**overrides)
     return parser.parse_args(argv)
+
+
+def run_eval(args, cfg, trainer, cloth_faces, out_dir: str) -> None:
+    """The stage-4 evaluation of ``--run_eval`` (see the module
+    docstring) on the trainer's device."""
+    from ..utils.io import write_obj
+    mesh_dir = os.path.join(out_dir, "uvmesh")
+    with np.load(args.tracked_verts_npz.replace("train", "test")) as f:
+        test = {k: f[k] for k in f.files}
+    if not args.skip_sim:
+        verts0 = test["train_verts"][0]
+        velo0 = (test["train_verts"][1] - test["train_verts"][0]) * 25.0
+        smplx = test["smplx_verts"]
+        smplx_velo = (smplx[1:] - smplx[:-1]) * 25.0
+        frames = trainer.simulate(verts0, velo0, smplx[:-1], smplx_velo,
+                                  n_frames=len(smplx) - 1)
+        frames = [test["train_verts"][0]] + frames
+        os.makedirs(mesh_dir, exist_ok=True)
+        layered = "human_verts" in test and "cloth_v_idx" in test
+        for i, v in enumerate(frames):
+            if layered:
+                full = np.zeros((len(test["cloth_v_idx"])
+                                 + len(test["human_v_idx"]), 3), np.float32)
+                full[np.asarray(test["cloth_v_idx"])] = v
+                full[np.asarray(test["human_v_idx"])] = \
+                    test["human_verts"][i]
+                v = full
+            write_obj(os.path.join(mesh_dir, f"{i:03d}.obj"), v,
+                      cloth_faces)
+        print(f"wrote {len(frames)} simulated meshes to {mesh_dir}",
+              flush=True)
+    if args.skip_render:
+        return
+    from ..data import Scene
+    from ..render.avatar_model import (load_avatar_checkpoint,
+                                       load_mesh_avatar)
+    from .evaluate import render_eval_sequence
+    scene = Scene(cfg, return_type="image")
+    avatar, params = load_mesh_avatar(cfg.trained_model_path, cfg.uv_path,
+                                      sh_degree=cfg.sh_degree,
+                                      device=trainer.device)
+    ckpt = os.path.join(cfg.model_path, "point_cloud")
+    if os.path.isdir(ckpt):
+        latest = sorted(os.listdir(ckpt))[-1]
+        params = load_avatar_checkpoint(os.path.join(ckpt, latest), params)
+    render_eval_sequence(avatar, params, scene, mesh_dir, out_dir,
+                         cfg.uv_path, active_sh_degree=cfg.sh_degree,
+                         skip_video=args.skip_video)
+    print(f"eval renders written under {out_dir}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -67,6 +138,9 @@ def main(argv=None) -> int:
         int(data["num_joint_v"]), int(data["num_joint_f"]),
         device=args.device)
     out_dir = cfg.output_dir or "./output/material"
+    if args.run_eval:
+        run_eval(args, cfg, trainer, data["cloth_faces"], out_dir)
+        return 0
     for it in range(opt.iterations):
         loss, p = trainer.train_one_step()
         print(f"step {it} loss {loss:.6f} D {p['D']:.3f} "
@@ -78,3 +152,4 @@ def main(argv=None) -> int:
 
 if __name__ == "__main__":
     raise SystemExit(main())
+

@@ -1301,3 +1301,51 @@ def test_pose_playback_goes_through_the_kernels_and_matches_the_cpu(
         err = float((getattr(out, name).cpu() - getattr(ref, name)).abs()
                     .max())
         assert err < atol, (name, err)
+
+
+def test_bake_ao_on_the_card_matches_the_cpu(dev):
+    """The AO bake on the card against the CPU on the bench's body mesh
+    (the port's 20 x 18 cut) under a spherical UV chart at 64^2, per
+    texel within 1e-5 (the same float32 formulas; the occupancy counts
+    exact)."""
+    from mpmavatar_tpu_torch.render.ao import bake_ao, rasterize_uv_chart
+    verts, faces = bench_render.build_body_mesh(n_theta=20, n_phi=18)
+    uv = np.stack([(np.arctan2(verts[:, 2], verts[:, 0]) + np.pi)
+                   / (2 * np.pi), 0.5 + verts[:, 1] / 1.8], -1)
+    chart = rasterize_uv_chart(uv.astype(np.float32), faces, resolution=64)
+    args = (chart.face_idx, chart.bary, chart.texel_ij)
+    out = bake_ao(torch.as_tensor(verts, device=dev),
+                  torch.as_tensor(faces, device=dev), *args, resolution=64,
+                  texel_chunk=512)
+    ref = bake_ao(torch.as_tensor(verts), torch.as_tensor(faces), *args,
+                  resolution=64)
+    assert float((out.cpu() - ref).abs().max()) <= 1e-5
+    assert float(ref.min()) < 0.9
+
+
+def test_avatar_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A checkpoint of the bench avatar (cut) with some slots dead saved
+    from the card and loaded on the card: the alive splats packed in
+    order, the other arrays equal."""
+    from mpmavatar_tpu_torch.render import avatar_model as am
+    avatar, params, n = bench_render.build_avatar(
+        capacity=1400, n_theta=20, n_phi=18, device=dev)
+    alive = params.splats.alive.clone()
+    alive[::5] = False
+    params = dataclasses.replace(params, splats=dataclasses.replace(
+        params.splats, alive=alive,
+        xyz=torch.randn_like(params.splats.xyz) * 0.01))
+    am.save_avatar_checkpoint(str(tmp_path), params, avatar)
+    loaded = am.load_avatar_checkpoint(str(tmp_path), params)
+    k = int(alive.sum())
+    assert loaded.splats.xyz.device.type == "cuda"
+    assert bool(loaded.splats.alive[:k].all()) and \
+        not bool(loaded.splats.alive[k:].any())
+    for f in ("xyz", "features_dc", "features_rest", "scaling", "rotation",
+              "opacity", "binding"):
+        assert torch.equal(getattr(loaded.splats, f)[:k],
+                           getattr(params.splats, f)[alive]), f
+    for f in ("verts_offset", "cam_m", "cam_c"):
+        assert torch.equal(getattr(loaded, f), getattr(params, f)), f
+    assert all(torch.equal(loaded.shadow[key], v)
+               for key, v in params.shadow.items())

@@ -157,7 +157,55 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      bake on the card against the CPU at AO_CUT^2; the CLI at a cut size
      (CUT) on the card against the CPU; the metrics CLI
      (train/eval_metrics.py) over both trees with seeded LPIPS weights,
-     every metric finite and the checkpoint's PSNR above the gray start's.
+     every metric finite and the checkpoint's PSNR above the gray start's;
+ 12. the zero-shot demo: data/make_demo_assets's assets (a 183 x 183
+     skirt, 33,489 vertices and 66,612 faces, on a capsule body; the
+     chair box and 2,000 chair gaussians; the 22-joint SMPL-X-width rig
+     and its sit-down poses cut to DEMO_POSES; the tracked skirt avatar)
+     through train/run_demo at 250^3 and 400 substeps a frame, one frame
+     per pose and DEMO_EXTRA more (the sand reaching the body's top in
+     the last, timed frames), 100,000 sand particles released from frame
+     1, with the launch counters reset just before and read just after
+     (K1, K2, K5, K3, K4 (the collider: no vertex is pinned, so no
+     mover) and K8 once per substep; the bakes and the tile-path orbit
+     renders launch none):
+     the state finite after each frame; the release windows under the
+     JAX package's semantics (the windows that close before they open
+     counted, here and under the defaults' 160 frames; the sand, which
+     starts above the grid's top with these assets, held by none; the
+     pre-P2G modifier leaving a live window's particles at |v| <=
+     RELEASE_STILL and the others untouched), the sand's median fall
+     over frame FALL_FRAME (before it reaches the body) against g t, and
+     the collider at full width: the body slowing some of the sand in
+     the last frame, K5's mesh branch changing the velocity of some
+     cells and no cloth vertex ending deeper than DRAPE_TOL inside the
+     chair's box (the 12-triangle box acts only near its faces'
+     centroids, in the JAX package alike, tests/test_torch_demo.py); the
+     cut scene (DEMO_CUT: a 48 x 48 skirt, 3,000 sand lowered into the
+     grid and held by live windows, the chair, the body widened against
+     the skirt's top and moving, 64^3) on the kernel path against the
+     plain path on the CPU over COMPARE_SUBSTEPS substeps, beside the
+     release left out and the collider's friction 0, K5's mesh branch
+     changing cells; K2, K4 and K8 at the demo's own shapes against
+     their plain versions (phase 4's checks); every
+     orbit frame of the run (AO bake and render at 1024^2) without
+     overflow, ORBIT_CHECKS of them again with and without the sand, and
+     at ORBIT_CUT^2 on the card against the CPU off the alpha cutoff's
+     ties; ms per substep, per bake and per orbit frame, the release
+     modifiers' share of the substep, peak memory and a profile of 20
+     more substeps;
+ 13. stage-1 tracking: train/run_tracking on phase 11's capture (9
+     cameras, 1500 x 1000, 50,244 faces, one gaussian each), TRACK_ITERS
+     iterations on frames 0 and 1 through the worklist compositor
+     (--work_cap TRACK_WORK_CAP), with the launch counters reset just
+     before and read just after (K6 and K7 twice per iteration, nothing
+     else): no overflow, the loss falling over frame 0, the
+     params_{t}.npz files loading as an avatar; one iteration's gradient
+     w.r.t. the vertices, colours and colour calibration through K6/K7
+     against their plain versions on the card, beside K7's output
+     detached; K6 and K7 against their plain versions on one more
+     iteration's own worklists and cotangents (phases 6 and 7's checks);
+     ms per iteration, peak memory and a profile of one more iteration.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -341,6 +389,48 @@ AO_CUT, AO_TOL = 64, 1e-5
 CUT = dict(n_frames=2, n_cams=3, width=96, height=64, mesh=(20, 18),
            work_cap=64)
 CUT_ITERS, CUT_TOL = 4, 1e-5
+
+# the zero-shot demo (phase 12): data/make_demo_assets's assets with the
+# pose sequence cut to DEMO_POSES poses and DEMO_EXTRA frames after them,
+# train/run_demo at 250^3 and 400 substeps a frame, the sand released
+# from frame 1.  The sand starts above the grid's top; its first substep
+# leaves it at the top (G2P's clamp), from where it falls as g t (its
+# median fall over frame FALL_FRAME within FALL_REL_TOL) onto the body's
+# top (the rig sits down over the poses, its top from sim y 1.875 to
+# 1.676), which it reaches in frame 6: the last, timed frame and the
+# profile after it run with the sand in contact (some of it slower than
+# g t).  The pre-P2G modifier leaves a live window's particles at |v| <=
+# RELEASE_STILL; K5's mesh branch changes some cells; the cut scene
+# (DEMO_CUT) over COMPARE_SUBSTEPS substeps on the kernel path against
+# the plain path on the CPU at PATH_ATOL, beside the release schedule
+# left out; ORBIT_CHECKS orbit frames at 1024^2 with and
+# without the sand, and at ORBIT_CUT^2 on the card against the CPU within
+# FRAME_TOL off the alpha cutoff's ties
+DEMO_POSES, DEMO_GRID, DEMO_SUBSTEPS, DEMO_RELEASE = 3, 250, 400, 1
+DEMO_EXTRA, FALL_FRAME = 5, 2
+RELEASE_STILL = 1e-6
+DEMO_CUT = dict(grid=64, skirt=(48, 48), sand_res=(30, 5, 20),
+                sand_center=(-0.4, 1.2, -0.1), release=(0.0, 0.05),
+                body_r=0.25, body_v=(0.0, 0.0, 0.5))
+ORBIT_CHECKS, ORBIT_CUT = 2, 256
+# two splats that cover a pixel at depths within DEPTH_BAND (relative) of
+# each other: the card's and the CPU's projections round the depth apart
+# by a few ulps, so the sort may order them either way (the sand's
+# colours differ by position); such pixels are counted like the alpha
+# cutoff's ties
+DEPTH_BAND = 1e-6
+
+# stage-1 tracking (phase 13): train/run_tracking on phase 11's capture,
+# TRACK_ITERS iterations on frame 0 and on frame 1, through the worklist
+# compositor (TRACK_WORK_CAP); K6 and K7 twice per iteration; the steady
+# ms per iteration is the median after TRACK_WARM; one iteration's
+# gradient through K6/K7 against their plain versions on the card per
+# leaf (TRACK_GRAD_TOL of the leaf's largest entry), beside K7's output
+# detached
+TRACK_ITERS, TRACK_WORK_CAP, TRACK_WARM = (30, 10), 8192, 2
+TRACK_FACES = 50244
+TRACK_GRAD_TOL = 1e-3
+TRACK_LEAVES = ("vertices", "rgb_colors", "cam_m", "cam_c")
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -896,6 +986,144 @@ def live_slots(packed, ids, nc):
     return packed[:, 5 + nc][ids] > 0
 
 
+def composite_check(check, label, packed, ids, pix, nc, launches_of):
+    """K6 against its gathered plain version on one worklist (the
+    alpha-cutoff ties counted and left out), through ``check``."""
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    out = kcomp.segment_composite_gather(packed, ids, pix, nc)
+    ref = kcomp.segment_composite_gather_plain(packed, ids, pix, nc)
+    _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2),
+                                         pix, nc)
+    near = (alpha - kcomp.ALPHA_MIN).abs() \
+        < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
+    n_near, tied = int(near.sum()), near.any(1)          # (W, P)
+    del alpha, near
+    diff = (out - ref).abs()                             # (W, nc+1, P)
+    keep = ~tied
+    rel = [float(diff[:, k][keep].max())
+           / max(float(ref[:, k].abs().max()), 1e-30)
+           for k in range(nc + 1)]
+    off = diff.amax(1) > K6_REL_TOL                      # (W, P)
+    n_off, off_untied = int(off.sum()), int((off & keep).sum())
+    err_abs = float(diff.amax(1)[keep].max())
+    ok = max(rel) <= K6_REL_TOL and off_untied == 0
+    W, C = ids.shape
+    sentinel = len(packed) - 1
+    filled = int((ids != sentinel).sum())
+    live = int(live_slots(packed, ids, nc).sum())
+    verdict = (f"W={W}, C={C}: {n_near} evaluations within "
+               f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
+               f"pixels; {n_off} pixels differ by more than "
+               f"{K6_REL_TOL:.0e} ({off_untied} of them untied); on the "
+               f"untied pixels max rel err per output "
+               f"{[f'{r:.2e}' for r in rel]} (tol {K6_REL_TOL:.0e}), "
+               f"max_abs_err {err_abs:.3e};")
+    # what the function needs from this data.  Bytes: the ids (8 C per
+    # item), the rows of the live slots (a gaussian of nonzero
+    # opacity; the sentinels that pad the tiles and fill phase 2 past
+    # n_items, and the dead splats, leave a segment as it is), the
+    # tile origins (8 per item) and the segments out ((nc+1) 256
+    # floats per item); operations: ~20 FP32 per live (gaussian,
+    # pixel), expf included
+    check("composite", [out], [ref], "composite.cu",
+          "mpmavatar_tpu/render/pallas_composite.py:87",
+          lambda: kcomp.segment_composite_gather(packed, ids, pix, nc),
+          lambda: kcomp.segment_composite_gather_plain(packed, ids, pix,
+                                                       nc),
+          8.0 * W * C + 4.0 * (live * (6 + nc) + 2 * W
+                               + W * (nc + 1) * 256),
+          20.0 * live * 256, launches_of, label=label,
+          err=(err_abs, ok, verdict),
+          extra={"items": W, "chunk": C, "filled_slots": filled,
+                 "live_slots": live,
+                 "near_cutoff_evaluations": n_near,
+                 "tied_pixels": int(tied.sum()),
+                 "pixels_over_tol": n_off,
+                 **kcomp.kernel_info(C, nc)[kcomp.KERNEL]})
+
+
+def composite_bwd_check(check, label, packed, ids, pix, g, nc,
+                        launches_of):
+    """K7 against its plain version on one worklist and cotangent (the
+    rows of tied items left out, a second run read), through
+    ``check``."""
+    import torch
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    dev = packed.device
+    out = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
+    ref = kcomp.segment_composite_gather_vjp_plain(packed, ids, pix, g,
+                                                   nc)
+    sentinel = len(packed) - 1
+    power, alpha = kcomp.segment_power_alpha(
+        packed[ids].transpose(1, 2), pix, nc)
+    near = (alpha - kcomp.ALPHA_MIN).abs() \
+        < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
+    n_near, tied = int(near.sum()), near.flatten(1).any(1)   # (W,)
+    n_pass = int(((power <= 0.0) & (alpha >= kcomp.ALPHA_MIN)).sum())
+    del power, alpha, near
+    # the rows of the gaussians in no tied item (a flip moves every
+    # gradient of its pixel)
+    keep = torch.ones(len(packed), dtype=torch.bool, device=dev)
+    keep[ids[tied]] = False
+    keep[sentinel] = False
+    diff = (out - ref).abs()[keep]                       # (rows, 6+nc)
+    rel = [float(diff[:, r].max()) / max(float(ref[:, r].abs().max()),
+                                         1e-30)
+           for r in range(6 + nc)]
+    err_abs = float(diff.max())
+    # the atomics add a row's items in another order on every run
+    again = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
+    rerun = max(float((again - out)[:, r].abs().max())
+                / max(float(ref[:, r].abs().max()), 1e-30)
+                for r in range(6 + nc))
+    sentinel_zero = bool((out[sentinel] == 0).all())
+    ok = max(rel) <= K7_REL_TOL and rerun <= K7_REL_TOL and sentinel_zero
+    W, C = ids.shape
+    live_of = live_slots(packed, ids, nc)                # (W, C)
+    live = int(live_of.sum())
+    live_items = int(live_of.any(1).sum())
+    touched = torch.zeros_like(keep)
+    touched[ids[live_of]] = True
+    held = int((keep & touched).sum())
+    verdict = (f"W={W}, C={C}: {n_near} evaluations within "
+               f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
+               f"items; on the rows of the {held} gaussians in none of "
+               f"those items (of {int(touched.sum())} with a live "
+               f"slot) max rel err per parameter row "
+               f"{[f'{r:.2e}' for r in rel]} "
+               f"(tol {K7_REL_TOL:.0e}), max_abs_err {err_abs:.3e}; a "
+               f"second run differs by {rerun:.2e} of a row's largest "
+               f"(the atomics' order); the sentinel row "
+               f"{'exactly 0' if sentinel_zero else 'NOT 0'};")
+    # what the function needs from this data.  Bytes: the ids (8 C per
+    # item), the rows of the live slots, the tile origins (8 per item),
+    # the cotangent ((nc+1) 256 floats) only for the items that hold a
+    # live slot (elsewhere nothing reaches d packed, whatever g is),
+    # d packed read and written once per live slot and its zero fill.
+    # Operations: ~20 FP32 per live (gaussian, pixel) to evaluate
+    # alpha (expf included), and ~50 more per evaluation that passes
+    # both cutoffs (the walk back, the parameter gradients and their
+    # sums over the pixels; a cut alpha leaves S and every gradient as
+    # they are)
+    check("composite_bwd", [out], [ref], "composite_bwd.cu",
+          "mpmavatar_tpu/render/pallas_composite.py:125",
+          lambda: kcomp.segment_composite_gather_vjp(packed, ids, pix, g,
+                                                     nc),
+          lambda: kcomp.segment_composite_gather_vjp_plain(
+              packed, ids, pix, g, nc),
+          8.0 * W * C + 4.0 * (3 * live * (6 + nc) + 2 * W
+                               + live_items * (nc + 1) * 256
+                               + len(packed) * (6 + nc)),
+          20.0 * live * 256 + 50.0 * n_pass, launches_of, label=label,
+          err=(err_abs, ok, verdict),
+          extra={"items": W, "chunk": C, "live_slots": live,
+                 "live_items": live_items, "passing_evaluations": n_pass,
+                 "near_cutoff_evaluations": n_near,
+                 "tied_items": int(tied.sum()),
+                 "rows_held": held, "rerun_rel": rerun,
+                 **kcomp.kernel_info(C, nc)[kcomp.KERNEL_BWD]})
+
+
 def render_path(dev, check) -> dict:
     """Phase 6: each render scene driven with the launch counters reset
     just before and read just after, K6 against its plain version on the
@@ -965,56 +1193,8 @@ def render_path(dev, check) -> dict:
 
     # K6 against its plain version on the scenes' own worklists
     def k6_check(label, packed, ids, pix, launches_of):
-        out = kcomp.segment_composite_gather(packed, ids, pix, nc)
-        ref = kcomp.segment_composite_gather_plain(packed, ids, pix, nc)
-        _, alpha = kcomp.segment_power_alpha(packed[ids].transpose(1, 2),
-                                             pix, nc)
-        near = (alpha - kcomp.ALPHA_MIN).abs() \
-            < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
-        n_near, tied = int(near.sum()), near.any(1)          # (W, P)
-        del alpha, near
-        diff = (out - ref).abs()                             # (W, nc+1, P)
-        keep = ~tied
-        rel = [float(diff[:, k][keep].max())
-               / max(float(ref[:, k].abs().max()), 1e-30)
-               for k in range(nc + 1)]
-        off = diff.amax(1) > K6_REL_TOL                      # (W, P)
-        n_off, off_untied = int(off.sum()), int((off & keep).sum())
-        err_abs = float(diff.amax(1)[keep].max())
-        ok = max(rel) <= K6_REL_TOL and off_untied == 0
-        W, C = ids.shape
-        sentinel = len(packed) - 1
-        filled = int((ids != sentinel).sum())
-        live = int(live_slots(packed, ids, nc).sum())
-        verdict = (f"W={W}, C={C}: {n_near} evaluations within "
-                   f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
-                   f"pixels; {n_off} pixels differ by more than "
-                   f"{K6_REL_TOL:.0e} ({off_untied} of them untied); on the "
-                   f"untied pixels max rel err per output "
-                   f"{[f'{r:.2e}' for r in rel]} (tol {K6_REL_TOL:.0e}), "
-                   f"max_abs_err {err_abs:.3e};")
-        # what the function needs from this data.  Bytes: the ids (8 C per
-        # item), the rows of the live slots (a gaussian of nonzero
-        # opacity; the sentinels that pad the tiles and fill phase 2 past
-        # n_items, and the dead splats, leave a segment as it is), the
-        # tile origins (8 per item) and the segments out ((nc+1) 256
-        # floats per item); operations: ~20 FP32 per live (gaussian,
-        # pixel), expf included
-        check("composite", [out], [ref], "composite.cu",
-              "mpmavatar_tpu/render/pallas_composite.py:87",
-              lambda: kcomp.segment_composite_gather(packed, ids, pix, nc),
-              lambda: kcomp.segment_composite_gather_plain(packed, ids, pix,
-                                                           nc),
-              8.0 * W * C + 4.0 * (live * (6 + nc) + 2 * W
-                                   + W * (nc + 1) * 256),
-              20.0 * live * 256, launches_of, label=label,
-              err=(err_abs, ok, verdict),
-              extra={"items": W, "chunk": C, "filled_slots": filled,
-                     "live_slots": live,
-                     "near_cutoff_evaluations": n_near,
-                     "tied_pixels": int(tied.sum()),
-                     "pixels_over_tol": n_off,
-                     **kcomp.kernel_info(C, nc)[kcomp.KERNEL]})
+        composite_check(check, label, packed, ids, pix, nc,
+                        launches_of)
 
     av = scenes["avatar"]
     (pk1, ids1, pix1), (pk2, ids2, pix2) = av["calls"]
@@ -1244,78 +1424,8 @@ def train_path(dev, check, big_call) -> tuple:
                              f"gradients through index_put: {wl_rows}")
 
     def k7_check(label, packed, ids, pix, g):
-        out = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
-        ref = kcomp.segment_composite_gather_vjp_plain(packed, ids, pix, g,
-                                                       nc)
-        sentinel = len(packed) - 1
-        power, alpha = kcomp.segment_power_alpha(
-            packed[ids].transpose(1, 2), pix, nc)
-        near = (alpha - kcomp.ALPHA_MIN).abs() \
-            < CUTOFF_BAND * kcomp.ALPHA_MIN                  # (W, C, P)
-        n_near, tied = int(near.sum()), near.flatten(1).any(1)   # (W,)
-        n_pass = int(((power <= 0.0) & (alpha >= kcomp.ALPHA_MIN)).sum())
-        del power, alpha, near
-        # the rows of the gaussians in no tied item (a flip moves every
-        # gradient of its pixel)
-        keep = torch.ones(len(packed), dtype=torch.bool, device=dev)
-        keep[ids[tied]] = False
-        keep[sentinel] = False
-        diff = (out - ref).abs()[keep]                       # (rows, 6+nc)
-        rel = [float(diff[:, r].max()) / max(float(ref[:, r].abs().max()),
-                                             1e-30)
-               for r in range(6 + nc)]
-        err_abs = float(diff.max())
-        # the atomics add a row's items in another order on every run
-        again = kcomp.segment_composite_gather_vjp(packed, ids, pix, g, nc)
-        rerun = max(float((again - out)[:, r].abs().max())
-                    / max(float(ref[:, r].abs().max()), 1e-30)
-                    for r in range(6 + nc))
-        sentinel_zero = bool((out[sentinel] == 0).all())
-        ok = max(rel) <= K7_REL_TOL and rerun <= K7_REL_TOL and sentinel_zero
-        W, C = ids.shape
-        live_of = live_slots(packed, ids, nc)                # (W, C)
-        live = int(live_of.sum())
-        live_items = int(live_of.any(1).sum())
-        touched = torch.zeros_like(keep)
-        touched[ids[live_of]] = True
-        held = int((keep & touched).sum())
-        verdict = (f"W={W}, C={C}: {n_near} evaluations within "
-                   f"{CUTOFF_BAND:.0e} of the cutoff on {int(tied.sum())} "
-                   f"items; on the rows of the {held} gaussians in none of "
-                   f"those items (of {int(touched.sum())} with a live "
-                   f"slot) max rel err per parameter row "
-                   f"{[f'{r:.2e}' for r in rel]} "
-                   f"(tol {K7_REL_TOL:.0e}), max_abs_err {err_abs:.3e}; a "
-                   f"second run differs by {rerun:.2e} of a row's largest "
-                   f"(the atomics' order); the sentinel row "
-                   f"{'exactly 0' if sentinel_zero else 'NOT 0'};")
-        # what the function needs from this data.  Bytes: the ids (8 C per
-        # item), the rows of the live slots, the tile origins (8 per item),
-        # the cotangent ((nc+1) 256 floats) only for the items that hold a
-        # live slot (elsewhere nothing reaches d packed, whatever g is),
-        # d packed read and written once per live slot and its zero fill.
-        # Operations: ~20 FP32 per live (gaussian, pixel) to evaluate
-        # alpha (expf included), and ~50 more per evaluation that passes
-        # both cutoffs (the walk back, the parameter gradients and their
-        # sums over the pixels; a cut alpha leaves S and every gradient as
-        # they are)
-        check("composite_bwd", [out], [ref], "composite_bwd.cu",
-              "mpmavatar_tpu/render/pallas_composite.py:125",
-              lambda: kcomp.segment_composite_gather_vjp(packed, ids, pix, g,
-                                                         nc),
-              lambda: kcomp.segment_composite_gather_vjp_plain(
-                  packed, ids, pix, g, nc),
-              8.0 * W * C + 4.0 * (3 * live * (6 + nc) + 2 * W
-                                   + live_items * (nc + 1) * 256
-                                   + len(packed) * (6 + nc)),
-              20.0 * live * 256 + 50.0 * n_pass, launches, label=label,
-              err=(err_abs, ok, verdict),
-              extra={"items": W, "chunk": C, "live_slots": live,
-                     "live_items": live_items, "passing_evaluations": n_pass,
-                     "near_cutoff_evaluations": n_near,
-                     "tied_items": int(tied.sum()),
-                     "rows_held": held, "rerun_rel": rerun,
-                     **kcomp.kernel_info(C, nc)[kcomp.KERNEL_BWD]})
+        composite_bwd_check(check, label, packed, ids, pix, g, nc,
+                            launches)
 
     (pk1, ids1, pix1, g1), (pk2, ids2, pix2, g2) = calls
     k7_check("composite_bwd (train step phase 1, every tile)", pk1, ids1,
@@ -2148,20 +2258,11 @@ def random_lpips_npz(path) -> None:
     np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
 
 
-def stage24_path(dev, smi) -> tuple:
-    """Phase 11, the stage-2 and stage-4 tools, in a git-ignored
-    directory removed afterwards.  Returns (steady ms per CLI step, the
-    CLI run's launches)."""
-    import shutil
-    work = REPO / "output" / "chip_smoke_stage24"
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        return _stage24(dev, smi, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-
-
-def _stage24(dev, smi, work) -> tuple:
+def stage24_path(dev, smi, work) -> tuple:
+    """Phase 11, the stage-2 and stage-4 tools, in the git-ignored
+    directory ``work`` (the caller removes it; phase 13 tracks its
+    capture).  Returns (steady ms per CLI step, the CLI run's
+    launches)."""
     import numpy as np
     import torch
     from mpmavatar_tpu_torch.data import OptimizationParams, Scene
@@ -2451,6 +2552,629 @@ def _stage24(dev, smi, work) -> tuple:
     return ms_step, launches
 
 
+def chair_depth(points, lo, hi):
+    """(N,) how deep each point lies inside the box [lo, hi] (0 outside)."""
+    import numpy as np
+    d = np.minimum(points - lo, hi - points)
+    return np.where((d > 0).all(1), d.min(1), 0.0)
+
+
+def demo_gaussians(avatar, params, verts, sand, chair, cam):
+    """(means2d, depth, conic, opacity) of every gaussian that
+    ``render_demo_frame`` draws (the avatar, the sand, the chair), as
+    the rasterizer projects them for ``cam``."""
+    import torch
+    from mpmavatar_tpu_torch.render import camera_arrays
+    from mpmavatar_tpu_torch.render import gaussians as G
+    from mpmavatar_tpu_torch.render.geometry import \
+        covariance_from_scaling_rotation
+    from mpmavatar_tpu_torch.render.rasterizer import project_gaussians
+    from mpmavatar_tpu_torch.train import demo as tdemo
+    frames = avatar.frames_for_verts(verts)
+    xyz = [G.get_xyz(params.splats, frames)]
+    cov = [G.get_covariance(params.splats, frames)]
+    op = [G.get_opacity(params.splats)[:, 0] * params.splats.alive]
+    n = sand.shape[0]
+    rot = torch.zeros((n, 4), device=sand.device)
+    rot[:, 0] = 1.0
+    xyz.append(sand)
+    cov.append(covariance_from_scaling_rotation(
+        torch.full((n, 3), tdemo.SAND_SCALE, device=sand.device), 1.0, rot))
+    op.append(torch.ones(n, device=sand.device))
+    xyz.append(chair["xyz"])
+    cov.append(covariance_from_scaling_rotation(chair["scale"], 1.0,
+                                                chair["rotation"]))
+    op.append(chair["opacity"].reshape(-1))
+    ca = camera_arrays(cam, verts.device)
+    m2d, depth, conic, _, vis = project_gaussians(
+        torch.cat(xyz), torch.cat(cov), ca, cam.image_width,
+        cam.image_height)
+    return m2d, depth, conic, torch.cat(op) * vis
+
+
+def _pixel_alpha(m2d, conic, opacity, chunk):
+    """(K, N) each gaussian's alpha at the (x, y) pixels ``chunk``."""
+    import torch
+    dx = chunk[:, :1].float() - m2d[None, :, 0]
+    dy = chunk[:, 1:].float() - m2d[None, :, 1]
+    power = -0.5 * (conic[:, 0] * dx * dx + conic[:, 2] * dy * dy) \
+        - conic[:, 1] * dx * dy
+    return opacity * torch.exp(torch.clamp_max(power, 0.0))
+
+
+def near_cutoff(m2d, conic, opacity, pixels, rel=CUTOFF_BAND):
+    """(K,) bool: whether some gaussian's alpha at each (x, y) pixel of
+    ``pixels`` (K, 2) lies within ``rel`` (relative) of the 1/255
+    cutoff."""
+    import torch
+    out = [((_pixel_alpha(m2d, conic, opacity, chunk) - 1.0 / 255.0).abs()
+            < rel / 255.0).any(dim=1) for chunk in pixels.split(256)]
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool)
+
+
+def depth_gap(m2d, depth, conic, opacity, pixels):
+    """(K,) the smallest relative depth gap between two gaussians that
+    cover each (x, y) pixel of ``pixels`` (alpha at or above the 1/255
+    cutoff; inf with fewer than two), and (K,) how many cover it."""
+    import torch
+    gaps, counts = [], []
+    for chunk in pixels.split(256):
+        cover = _pixel_alpha(m2d, conic, opacity, chunk) >= 1.0 / 255.0
+        for row in cover:
+            d = depth[row].sort().values
+            gap = (d[1:] - d[:-1]) / d[1:].abs().clamp_min(1e-12)
+            gaps.append(float(gap.min()) if gap.numel() else float("inf"))
+            counts.append(int(row.sum()))
+    return torch.tensor(gaps, dtype=torch.float64), torch.tensor(counts)
+
+
+def demo_path(dev, smi, kchecks, per_sub) -> tuple:
+    """Phase 12, the zero-shot demo, in a git-ignored directory removed
+    afterwards.  ``kchecks`` holds phase 4's K2, K4 and K8 checks.
+    Returns (steady ms per substep, the run's launches)."""
+    import shutil
+    work = REPO / "output" / "chip_smoke_demo"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        return _demo(dev, smi, kchecks, per_sub, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def demo_cut_scene(device, release: bool, friction: float = 0.5):
+    """The cut demo scene: ``build_demo_sim`` at DEMO_CUT's grid, skirt
+    and sand (the block lowered into the grid so that the release windows
+    hold it), the chair (the skirt starts inside its box) and the capsule body
+    widened to DEMO_CUT's radius, against the skirt's top, and moving at
+    DEMO_CUT's velocity; the collider's friction ``friction``; the
+    windows live over the run, or left out.  Returns (solver, state,
+    model, frame inputs)."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import make_demo_assets as mda
+    from mpmavatar_tpu_torch.sim import SimTransform
+    from mpmavatar_tpu_torch.train import demo as tdemo
+    cloth_v, cloth_f = mda.skirt_cloth(*DEMO_CUT["skirt"])
+    body_v, body_f = mda.capsule_body(radius=DEMO_CUT["body_r"])
+    chair_v, chair_f = mda.chair_box()
+    col_v = np.concatenate([body_v, chair_v])
+    col_f = np.concatenate([body_f, chair_f + len(body_v)])
+    sand, vol = tdemo.get_sand(center=DEMO_CUT["sand_center"],
+                               res=DEMO_CUT["sand_res"])
+    tf = SimTransform.from_verts(cloth_v)
+    _, state, model, solver = tdemo.build_demo_sim(
+        cloth_v, cloth_f, sand, vol, col_v, col_f, tf,
+        grid_size=DEMO_CUT["grid"], mesh_friction=friction, device=device)
+    if release:
+        z = tf.wld2sim(sand)[:, 2]
+        tdemo.sand_release_schedule(solver, state, None, (0.0, 0.0, 1.0),
+                                    float(z.max()), float(z.min()),
+                                    *DEMO_CUT["release"])
+    mesh_x = tf.wld2sim(col_v, device)
+    mesh_v = torch.zeros_like(mesh_x)
+    mesh_v[:len(body_v)] = tf.vel2sim(DEMO_CUT["body_v"], device)
+    return solver, state, model, {"mesh_x": mesh_x, "mesh_v": mesh_v}
+
+
+def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.core import stepping
+    from mpmavatar_tpu_torch.data import make_demo_assets as mda
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.render.ao import bake_ao, load_uv_chart
+    from mpmavatar_tpu_torch.render.avatar_model import load_mesh_avatar
+    from mpmavatar_tpu_torch.render.cameras import Camera
+    from mpmavatar_tpu_torch.sim import SimTransform
+    from mpmavatar_tpu_torch.train import demo as tdemo
+    from mpmavatar_tpu_torch.train import run_demo
+    from mpmavatar_tpu_torch.utils.io import read_obj
+
+    t_phase = time.perf_counter()
+    assets = work / "assets"
+    t0 = time.perf_counter()
+    mda.main(["--out", str(assets), "--n_poses", str(DEMO_POSES)])
+    print(f"demo: make_demo_assets ({DEMO_POSES} poses) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    a = lambda name: str(assets / name)
+    out = work / "out"
+    flags = ["--cloth_obj", a("cloth.obj"), "--body_obj", a("body.obj"),
+             "--chair_obj", a("chair.obj"), "--chair_gs", a("chair_gs.npz"),
+             "--smplx_model_npz", a("smplx_model.npz"),
+             "--first_smplx_npz", a("first_smplx.npz"),
+             "--pose_npz", a("pose_seq.npz"), "--extra_frames",
+             str(DEMO_EXTRA),
+             "--grid_size", str(DEMO_GRID), "--substep", str(DEMO_SUBSTEPS),
+             "--sand_release_frame", str(DEMO_RELEASE), "--avatar_dir",
+             a("tracked"), "--uv_path", a("uv.obj"), "--skip_video",
+             "--out_dir", str(out), "--device", str(dev)]
+
+    # (a) the CLI, its launches counted over the whole run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    res = run_demo.main(flags, log=lambda line: print(f"  run_demo: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cfg, solver, state = res["cfg"], res["solver"], res["state"]
+    model, dt, t_end = res["model"], res["dt"], res["time"]
+    frames = len(res["frame_s"])
+    n_sub = frames * DEMO_SUBSTEPS
+    want = {k: per * n_sub for k, per in per_sub.items()}
+    if frames != DEMO_POSES + DEMO_EXTRA or launches != want:
+        raise AssertionError(f"demo: {frames} frames, launches {launches}, "
+                             f"expected {want}")
+    ms_sub = 1e3 * res["frame_s"][-1] / DEMO_SUBSTEPS
+    e, n_t = cfg.n_elements, cfg.n_traditional
+    print(f"demo: P={cfg.n_particles} ({e} elements, {n_t} sand, "
+          f"{cfg.n_vertices} vertices), {DEMO_GRID}^3, {frames} x "
+          f"{DEMO_SUBSTEPS} substeps (dt {dt:.2e}), "
+          f"{len(solver.colliders.mesh_colliders[0].faces)} collider faces "
+          f"(the posed rig and the chair), no pinned vertex; launches "
+          f"{launches}; frame wall times "
+          f"{[round(s, 4) for s in res['frame_s']]} s, steady "
+          f"{ms_sub:.4f} ms/substep; stages: pose playback "
+          f"{res['playback']:.2f} s, build and release masks "
+          f"{res['build']:.2f} s, simulation with OBJs {res['sim']:.2f} s, "
+          f"bakes and orbit renders {res['render']:.2f} s; peak "
+          f"{(peak - held) / 2 ** 30:.3f} GiB above the "
+          f"{held / 2 ** 30:.3f} GiB held before")
+
+    # (b) the release under the JAX package's semantics
+    sand = slice(e, e + n_t)
+    mods = solver.colliders.velocity_modifiers
+    t0_rel = DEMO_RELEASE / run_demo.FPS
+    dead = sum(float(m.end_time) <= t0_rel for m in mods)
+    held_sand = sum(int(m.mask[sand].sum()) for m in mods)
+    held_cloth = int(mods[0].mask.sum()) - int(mods[0].mask[sand].sum())
+    t_live = (DEMO_RELEASE + 0.5) / run_demo.FPS
+    live = [m for m in mods
+            if float(m.start_time) <= t_live < float(m.end_time)]
+    sel = torch.zeros(cfg.n_particles, dtype=torch.bool, device=dev)
+    for m in live:
+        sel |= m.mask == 1
+    v_mod = stepping._pre_p2g_velocity(solver.colliders, state, dt, t_live)
+    still = float(v_mod[sel].abs().max()) if bool(sel.any()) else 0.0
+    untouched = bool(torch.equal(v_mod[~sel], state.v[~sel]))
+    # the fall over frame FALL_FRAME from the sand's OBJs: after its first
+    # substep every grain falls as v_n = -g n dt, x_n = x_(n-1) + dt v_n
+    tf = SimTransform.from_verts(read_obj(a("cloth.obj"))[0])
+    sand_y = lambda i: tf.scale * torch.as_tensor(read_obj(str(
+        out / "sand" / f"{i:03d}.obj"))[0][:, 1])
+    n0, n1 = FALL_FRAME * DEMO_SUBSTEPS, (FALL_FRAME + 1) * DEMO_SUBSTEPS
+    expect = -9.8 * dt * dt * (n1 * (n1 + 1) - n0 * (n0 + 1)) / 2
+    drop = sand_y(FALL_FRAME) - sand_y(FALL_FRAME - 1)
+    median = float(drop.median())
+    off = int(((drop - expect).abs() > FALL_REL_TOL * abs(expect)).sum())
+    # the last frame: the sand in the grid, some of it on the body's top
+    vy = state.v[sand, 1]
+    fall = -9.8 * t_end
+    slowed = int((vy > fall * (1 - FALL_REL_TOL)).sum())
+    y_last = state.x[sand, 1]
+    y_before = sand_y(frames - 2) + float(tf.shift[1])
+    # the modifiers' share: PROFILE_SUBSTEPS substeps with and without
+    # them, from the same state, in turns
+    with_mods = solver.colliders
+    without = dataclasses.replace(with_mods, velocity_modifiers=())
+    run_n = lambda: solver.frame(state, model, dt, PROFILE_SUBSTEPS, t_end,
+                                 **res["inputs"])
+    walls = {True: [], False: []}
+    for mods_on in (True, False, False, True):
+        solver.colliders = with_mods if mods_on else without
+        walls[mods_on].append(timed_ms(run_n, reps=1) / PROFILE_SUBSTEPS)
+    solver.colliders = with_mods
+    mod_ms = min(walls[True]) - min(walls[False])
+    default_frames = 30 + 130
+    default_end = 100 / run_demo.FPS + (default_frames - 100) / run_demo.FPS
+    default_dead = sum(default_end / len(mods) * (i + 1) <= 100 / run_demo.FPS
+                       for i in range(len(mods)))
+    print(f"demo release: {len(mods)} windows from t = {t0_rel:.3f} s, "
+          f"{dead} of them closing before they open ({default_dead} of 50 "
+          f"under the defaults' 160 frames); the windows hold {held_sand} "
+          f"sand particles (the block starts above the grid's top) and the "
+          f"largest {held_cloth} cloth particles in the sand's z range; at "
+          f"t = {t_live:.3f} s {len(live)} windows are live over "
+          f"{int(sel.sum())} particles, |v| after the modifier "
+          f"{still:.3e} (limit {RELEASE_STILL:.0e}), the others untouched "
+          f"{untouched}; over frame {FALL_FRAME} the sand's median fall "
+          f"{median:.6f} against g t's {expect:.6f} (tol "
+          f"{FALL_REL_TOL:.0%}), {off} of {n_t} off by more; in the last "
+          f"frame the sand's sim y from [{float(y_before.min()):.4f}, "
+          f"{float(y_before.max()):.4f}] to [{float(y_last.min()):.4f}, "
+          f"{float(y_last.max()):.4f}], {slowed} of {n_t} grains slower "
+          f"than g t by more than {FALL_REL_TOL:.0%} (the body's top); "
+          f"{PROFILE_SUBSTEPS} substeps with the modifiers "
+          f"{min(walls[True]):.4f} ms/substep, without "
+          f"{min(walls[False]):.4f} (host clock, the best of two): the "
+          f"modifiers {mod_ms:.4f} ms, {100 * mod_ms / min(walls[True]):.1f}% "
+          f"of the substep")
+    if not (live and bool(sel.any()) and still <= RELEASE_STILL
+            and untouched):
+        raise AssertionError("demo: the release windows do not hold their "
+                             "particles still")
+    if abs(median / expect - 1.0) > FALL_REL_TOL:
+        raise AssertionError("demo: the free sand does not fall as g t")
+
+    # (c) the collider at full width: the body slows the sand that lands
+    # on it, K5's mesh branch changes the velocity of some cells, and no
+    # cloth vertex that starts outside the chair's box ends deeper in it
+    # than DRAPE_TOL.  Each collider face acts at its centroid (K4 splats
+    # one point per face), so the 12-triangle chair can let cloth in away
+    # from its 12 centroids, in the JAX package alike (tests/
+    # test_torch_demo.py::test_chair_box_collides_only_near_its_face_
+    # centroids): over the poses alone, with no extra frame, a vertex
+    # ended 0.048 in
+    changed, covered = mesh_branch_cells(solver, state, model,
+                                         res["inputs"], t_end)
+    chair_v, _ = read_obj(a("chair.obj"))
+    lo, hi = chair_v.min(0), chair_v.max(0)
+    cloth0, _ = read_obj(a("cloth.obj"))
+    cloth1, _ = read_obj(str(out / "uvmesh" / f"{frames - 1:03d}.obj"))
+    d0 = chair_depth(cloth0, lo, hi) * tf.scale
+    d1 = chair_depth(cloth1, lo, hi) * tf.scale
+    deepest = float(d1[d0 <= 0].max()) if (d0 <= 0).any() else 0.0
+    print(f"demo collider: K5's mesh branch changed the velocity of "
+          f"{changed} grid cells ({covered} covered by the collider "
+          f"splat); the chair: {int((d0 > 0).sum())} cloth vertices start "
+          f"inside its box (up to {float(d0.max()):.4f} deep, sim units), "
+          f"{int((d1 > 0).sum())} end inside; of those that start outside "
+          f"the deepest ends {deepest:.5f} in (phase 3's drape limit "
+          f"{DRAPE_TOL:.5f})")
+    if slowed == 0 or changed == 0 or deepest > DRAPE_TOL:
+        raise AssertionError("demo collider: the body does not stop the "
+                             "sand, K5's mesh branch changes no cell, or "
+                             "the cloth ends too deep in the chair")
+
+    # (d) the cut scene: the kernel path against the plain path on the CPU
+    # beside the release schedule left out
+    s_k, st_k, m_k, in_k = demo_cut_scene(dev, True)
+    cpu = {"plain": demo_cut_scene("cpu", True),
+           "no release": demo_cut_scene("cpu", False),
+           "friction 0": demo_cut_scene("cpu", True, friction=0.0)}
+    e_c = s_k.cfg.n_elements
+    held_c = int(s_k.colliders.velocity_modifiers[0].mask[
+        e_c:e_c + s_k.cfg.n_traditional].sum())
+    g = torch.Generator(device=dev).manual_seed(3000)
+    a0 = dataclasses.replace(st_k, v=st_k.v + 0.05 * torch.randn(
+        st_k.v.shape, generator=g, device=dev))
+    ka = s_k.frame(a0, m_k, DT, COMPARE_SUBSTEPS, 0.0, **in_k)[0]
+    runs = {name: s_c.frame(a0.to("cpu"), m_c, DT, COMPARE_SUBSTEPS, 0.0,
+                            **in_c)[0]
+            for name, (s_c, _, m_c, in_c) in cpu.items()}
+    errs = {name: {f: float((getattr(o, f).cpu()
+                             - getattr(runs["plain"], f)).abs().max())
+                   for f in ("x", "v")}
+            for name, o in (("plain", ka), ("no release",
+                                            runs["no release"]),
+                            ("friction 0", runs["friction 0"]))}
+    cut_changed, _ = mesh_branch_cells(s_k, ka, m_k, in_k,
+                                       COMPARE_SUBSTEPS * DT)
+    print(f"demo cut scene ({DEMO_CUT['skirt'][0]}x{DEMO_CUT['skirt'][1]} "
+          f"skirt, {s_k.cfg.n_traditional} sand of which {held_c} held, "
+          f"{DEMO_CUT['grid']}^3, {COMPARE_SUBSTEPS} substeps): kernel path "
+          f"against the plain path x {errs['plain']['x']:.3e}, v "
+          f"{errs['plain']['v']:.3e} (tol x {PATH_ATOL['x']:.0e}, v "
+          f"{PATH_ATOL['v']:.0e}); wrong paths: the release left out x "
+          f"{errs['no release']['x']:.3e}, v {errs['no release']['v']:.3e}; "
+          f"collider friction 0 x {errs['friction 0']['x']:.3e}, v "
+          f"{errs['friction 0']['v']:.3e}; K5's mesh branch then changes "
+          f"{cut_changed} cells (the body against the skirt)")
+    for f, tol in PATH_ATOL.items():
+        if not errs["plain"][f] <= tol:
+            raise AssertionError(f"demo cut scene: the kernel path disagrees "
+                                 f"with the plain path in {f}")
+    if not min(errs["no release"]["v"], errs["friction 0"]["v"]) > \
+            PATH_ATOL["v"] or held_c == 0 or cut_changed <= 0:
+        raise AssertionError("demo cut scene: not in contact, or the v "
+                             "limit does not separate a wrong path")
+
+    # (e) K2, K4 and K8 at the demo's shapes, from its final state
+    _, _, _, stress_d, vf_d = stepping.compute_stress(cfg, state, model, dt)
+    stress_d = torch.cat([stress_d[:e], state.vol[
+        e:cfg.n_no_vertices, None, None] * stress_d[e:]])
+    kchecks["p2g"](f"p2g (the demo's {cfg.n_particles} particles, "
+                   f"{DEMO_GRID}^3)",
+                   (state.x, state.v, state.C, state.mass,
+                    (state.selection == 0).float(), dt * stress_d, dt * vf_d,
+                    DEMO_GRID, cfg.inv_dx, cfg.dx), launches)
+    pts, vals = stepping.mesh_face_values(
+        solver.colliders.mesh_colliders[0], res["inputs"]["mesh_x"],
+        res["inputs"]["mesh_v"])
+    kchecks["splat"](f"splat (the demo's {len(pts)} rig and chair faces, "
+                     f"{DEMO_GRID}^3)", pts, vals, DEMO_GRID, True,
+                     launches_of=launches)
+    kchecks["sand"](f"sand_stress (the demo's {n_t} sand particles)",
+                    (state.F_trial, state.F,
+                     (state.selection[sand] == 0).float(), model.mu[sand],
+                     model.lam[sand], model.alpha), launches_of=launches)
+
+    # (f) the orbit: every frame of the run without overflow; ORBIT_CHECKS
+    # frames again with and without the sand, and at ORBIT_CUT^2 on the
+    # card against the CPU
+    orbit = res["orbit"]
+    if len(orbit) != frames or any(r["big_overflow"] for r in orbit):
+        raise AssertionError(f"demo orbit: {orbit}")
+    bake_ms = [1e3 * r["bake_s"] for r in orbit]
+    frame_ms = [1e3 * r["render_s"] for r in orbit]
+    avatar, params = load_mesh_avatar(a("tracked"), a("uv.obj"), device=dev)
+    avatar_c, params_c = load_mesh_avatar(a("tracked"), a("uv.obj"),
+                                          device="cpu")
+    chair, shs = tdemo.load_chair_gaussians(a("chair_gs.npz"), dev)
+    chair_c, shs_c = tdemo.load_chair_gaussians(a("chair_gs.npz"), "cpu")
+    chart = load_uv_chart(a("uv.obj"), resolution=256)
+    faces = avatar.tensor("faces", dev)
+    cams = {}
+    for size in (1024, ORBIT_CUT):
+        f = 1000.0 * size / 1024
+        k = np.array([[f, 0, size / 2], [0, f, size / 2], [0, 0, 1]])
+        cams[size] = tdemo.get_spherical_cam(
+            Camera.from_kw2c("ref", size, size, k, np.eye(4)), frames)
+    for i in sorted({0, frames - 1})[:ORBIT_CHECKS]:
+        verts = torch.as_tensor(read_obj(str(out / "uvmesh" /
+                                             f"{i:03d}.obj"))[0], device=dev)
+        sand_x = torch.as_tensor(read_obj(str(out / "sand" /
+                                              f"{i:03d}.obj"))[0], device=dev)
+        ao = bake_ao(verts, faces, chart.face_idx, chart.bary, chart.texel_ij)
+        img, o1 = tdemo.render_demo_frame(avatar, params, verts, ao,
+                                          cams[1024][i], 0, sand_xyz=sand_x,
+                                          chair=chair, chair_shs=shs)
+        bare, o2 = tdemo.render_demo_frame(avatar, params, verts, ao,
+                                           cams[1024][i], 0, chair=chair,
+                                           chair_shs=shs)
+        sand_diff = float((img - bare).abs().max())
+        cut = cams[ORBIT_CUT][i]
+        img_k, ok_ = tdemo.render_demo_frame(avatar, params, verts, ao, cut,
+                                             0, sand_xyz=sand_x, chair=chair,
+                                             chair_shs=shs)
+        img_c, oc_ = tdemo.render_demo_frame(
+            avatar_c, params_c, verts.cpu(), ao.cpu(), cut, 0,
+            sand_xyz=sand_x.cpu(), chair=chair_c, chair_shs=shs_c)
+        diff = (img_k.cpu() - img_c).abs().amax(0)
+        bad = torch.nonzero(diff > FRAME_TOL)
+        m2d, depth, conic, opac = demo_gaussians(avatar, params, verts,
+                                                 sand_x, chair, cut)
+        px = bad[:, [1, 0]].to(dev)
+        cutoff_tie = near_cutoff(m2d, conic, opac, px).cpu()
+        gaps, n_cover = depth_gap(m2d, depth, conic, opac, px)
+        depth_tie = gaps <= DEPTH_BAND
+        tied = cutoff_tie | depth_tie
+        kept = diff[diff <= FRAME_TOL]
+        overflow = sum(int(o["big_overflow"]) for o in (o1, o2, ok_, oc_))
+        print(f"demo orbit frame {i}: 1024^2 with the sand against without "
+              f"it, max diff {sand_diff:.4f}; at {ORBIT_CUT}^2 card against "
+              f"CPU: {len(bad)} of {ORBIT_CUT ** 2} pixels over "
+              f"{FRAME_TOL:.0e}, {int(cutoff_tie.sum())} of them by an "
+              f"alpha within {CUTOFF_BAND:g} of the cutoff, "
+              f"{int((depth_tie & ~cutoff_tie).sum())} more by two covering "
+              f"splats within {DEPTH_BAND:g} in depth, the rest within "
+              f"{float(kept.max()):.3e}; overflow {overflow}; the most "
+              f"splats in one tile {int(oc_['tile_counts'].max())} (card "
+              f"{int(ok_['tile_counts'].max())}; the tile path composites "
+              f"the first 512)")
+        for (y, x), g, n, c in list(zip(bad.tolist(), gaps.tolist(),
+                                        n_cover.tolist(),
+                                        cutoff_tie.tolist()))[:20]:
+            print(f"  pixel ({x}, {y}): diff {float(diff[y, x]):.3e}, "
+                  f"{n} covering splats, the smallest depth gap {g:.3e}, "
+                  f"an alpha at the cutoff {c}")
+        if sand_diff <= 0.01 or overflow or not bool(tied.all()) or \
+                len(bad) > 0.01 * ORBIT_CUT ** 2:
+            raise AssertionError(f"demo orbit frame {i} fails its checks")
+    print(f"demo orbit: per frame AO bake "
+          f"{[round(x, 2) for x in bake_ms]} ms, render and PNG data "
+          f"{[round(x, 2) for x in frame_ms]} ms at 1024^2 "
+          f"({len(orbit)} frames, no overflow)")
+
+    # (g) a profile of PROFILE_SUBSTEPS more substeps
+    n = PROFILE_SUBSTEPS
+    busy_s, prof_wall, rows = profile_device(
+        lambda: solver.frame(state, model, dt, n, t_end, **res["inputs"]))
+    (OUT / "chip_smoke_profile_demo.txt").write_text("\n".join(
+        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
+    if rows:
+        idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
+        kernels = sum(r[2] for r in rows) / n
+        print(f"demo profile of {n} substeps: device busy "
+              f"{1e3 * busy_s / n:.4f} ms/substep in {kernels:.1f} "
+              f"kernels/substep ({sum(per_sub.values())} of them the "
+              f"port's), "
+              f"{1e3 * prof_wall / n:.4f} ms/substep profiled wall; the "
+              f"device idle {idle:.1f}% of the steady substep")
+        for key, us, calls in rows[:10]:
+            print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
+                  f"{key[:90]}")
+    else:
+        print("demo profile: the profiler recorded no device time; busy "
+              "share not measured")
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return ms_sub, launches
+
+
+def tracking_path(dev, smi, cap, work, check) -> tuple:
+    """Phase 13, stage-1 tracking on phase 11's capture under ``cap``,
+    written under ``work``; ``check`` is phase 4's kernel check.  Returns
+    (steady ms per iteration, the run's launches)."""
+    import contextlib
+    import shutil
+    from unittest import mock
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.render import rasterizer
+    from mpmavatar_tpu_torch.render.avatar_model import load_mesh_avatar
+    from mpmavatar_tpu_torch.train import run_tracking
+    from mpmavatar_tpu_torch.train import tracking as tt
+
+    t_phase = time.perf_counter()
+    frames_dir = cap / "dataset" / "ActorsHQ" / "Actor01" / "Sequence1" / "4x"
+    out = work / "tracking"
+    flags = ["--dataset_dir", str(cap / "dataset"), "--template_obj",
+             str(frames_dir / "meshes" / "Frame000000.obj"), "--out_dir",
+             str(out), "--train_frame_start_num", "0", "2",
+             "--iters_first", str(TRACK_ITERS[0]), "--iters_rest",
+             str(TRACK_ITERS[1]), "--work_cap", str(TRACK_WORK_CAP),
+             "--device", str(dev)]
+    starts, trackers, stats = [], [], []
+    real_step = tt.MeshTracker.step
+
+    def timed_step(self, *args, **kw):
+        if not trackers:
+            trackers.append(self)
+        starts.append(time.perf_counter())
+        loss = real_step(self, *args, **kw)
+        stats.append(torch.stack([self.stats["work_overflow"],
+                                  self.stats["big_overflow"],
+                                  self.stats["n_items"]]))
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()
+    with mock.patch.object(tt.MeshTracker, "step", timed_step):
+        res = run_tracking.main(flags, log=lambda line: print(
+            f"  run_tracking: {line}"))
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_it = sum(TRACK_ITERS)
+    want = {kcomp.KERNEL: 2 * n_it, kcomp.KERNEL_BWD: 2 * n_it}
+    counts = torch.stack(stats).cpu()
+    if launches != want or len(starts) != n_it:
+        raise AssertionError(f"tracking: {len(starts)} iterations, launches "
+                             f"{launches}, expected {want}")
+    if int(counts[:, :2].sum()):
+        raise AssertionError("tracking: the rasterizer overflowed")
+    it_ms = [1e3 * (b - a) for a, b in zip(starts[:TRACK_ITERS[0] - 1],
+                                           starts[1:TRACK_ITERS[0]])]
+    steady = statistics.median(it_ms[TRACK_WARM:])
+    losses = res[0]
+    tracker = trackers[0]
+    n_faces = int(tracker.variables["faces"].shape[0])
+    print(f"tracking: {n_faces} faces (one gaussian each), "
+          f"{len(tracker.params['cam_m'])} cameras, "
+          f"{TRACK_ITERS[0]} + {TRACK_ITERS[1]} iterations, work_cap "
+          f"{TRACK_WORK_CAP} (up to {int(counts[:, 2].max())} phase-2 items, "
+          f"no overflow); launches {launches}; per iteration "
+          f"{steady:.4f} ms median after {TRACK_WARM} (range "
+          f"{min(it_ms[TRACK_WARM:]):.4f}-{max(it_ms[TRACK_WARM:]):.4f}); "
+          f"frame wall {[round(s, 2) for s in res['seconds'].values()]} s "
+          f"(the images' decode included); frame 0's loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; peak "
+          f"{(peak - held) / 2 ** 30:.3f} GiB above the "
+          f"{held / 2 ** 30:.3f} GiB held")
+    if n_faces != TRACK_FACES or not losses[-1] < losses[0]:
+        raise AssertionError("tracking: the loss did not fall over frame 0")
+
+    # the params files load as the avatar
+    (out / "aomap").mkdir(exist_ok=True)
+    for t in (0, 1):
+        shutil.copy(cap / "tracked" / "aomap" / f"mesh_cloth_{t}.png",
+                    out / "aomap" / f"mesh_cloth_{t}.png")
+    avatar, params = load_mesh_avatar(str(out), str(cap / "tracked" /
+                                                    "uv.obj"), device=dev)
+    saved = np.load(out / "params_1.npz")
+    if avatar.num_timesteps != 2 or len(avatar.faces) != n_faces or \
+            not np.array_equal(avatar.verts_orig[1], saved["vertices"]):
+        raise AssertionError("tracking: params_*.npz do not load")
+    print(f"tracking: params_0.npz and params_1.npz load as a "
+          f"{avatar.num_timesteps}-frame avatar of {len(avatar.faces)} "
+          f"faces")
+
+    # one iteration's gradient through K6/K7 against their plain versions
+    # on the card, beside K7's output detached
+    from mpmavatar_tpu_torch.data import ModelParams, Scene
+    cfg_m = ModelParams(dataset_dir=str(cap / "dataset"),
+                        train_frame_start_num=[0, 2])
+    batch = tracker._device_batches(
+        [Scene(cfg_m).train_dataset.load_frame(0, 1)])[0]
+
+    def grads(composite=None):
+        leaves = [tracker.params[k] for k in TRACK_LEAVES]
+        with (mock.patch.object(rasterizer, "segment_composite_gather",
+                                composite) if composite else
+              contextlib.nullcontext()):
+            loss, _ = tt.tracking_loss(
+                tracker.params, tracker.variables, batch["ca"], batch["w"],
+                batch["h"], batch["cam_id"], batch["rgb"], batch["msk"],
+                None, None, tracker.prev_col, False, tracker.cfg)
+            return torch.autograd.grad(loss, leaves)
+
+    detached = lambda packed, ids, pix0, nc: kcomp.segment_composite_gather(
+        packed.detach(), ids, pix0, nc)
+    g_k = grads()
+    g_p = grads(kcomp.segment_composite_gather_plain)
+    g_w = grads(detached)
+    rel = lambda g: max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(g, g_p))
+    per_leaf = {k: float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                for k, a, b in zip(TRACK_LEAVES, g_k, g_p)}
+    sound, wrong = rel(g_k), rel(g_w)
+    print(f"tracking gradient d(loss)/d({', '.join(TRACK_LEAVES)}) of one "
+          f"iteration at {batch['w']}x{batch['h']} through "
+          f"K6/K7 against their plain versions, per leaf relative to its "
+          f"largest entry: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in per_leaf.items())
+          + f" (tol {TRACK_GRAD_TOL:.0e}); K7's output detached: {wrong:.3e}")
+    if not sound <= TRACK_GRAD_TOL < wrong:
+        raise AssertionError("tracking: the gradient through K6/K7 "
+                             "disagrees with the plain versions' or the "
+                             "limit does not separate the wrong path")
+
+    # K6 and K7 on one more iteration's own worklists and cotangents
+    calls = composite_calls(lambda: tracker.step(batch, None, None, False))
+    for phase, (packed, ids, pix0, g) in zip((1, 2), calls):
+        composite_check(check, f"composite (tracking phase {phase})",
+                        packed, ids, pix0, 3, launches)
+        composite_bwd_check(check, f"composite_bwd (tracking phase "
+                            f"{phase})", packed, ids, pix0, g, 3, launches)
+
+    # a profile of one more iteration
+    busy_s, prof_wall, rows = profile_device(
+        lambda: tracker.step(batch, None, None, False))
+    (OUT / "chip_smoke_profile_tracking.txt").write_text("\n".join(
+        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
+    if rows:
+        busy = 1e3 * busy_s
+        print(f"tracking profile of one iteration: device busy "
+              f"{busy:.4f} ms in {sum(r[2] for r in rows)} kernels, "
+              f"{1e3 * prof_wall:.4f} ms profiled wall; against the steady "
+              f"iteration busy {100 * min(1.0, busy / steady):.1f}%, idle "
+              f"{100 * max(0.0, 1 - busy / steady):.1f}%")
+        for key, us, calls in rows[:8]:
+            print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
+    else:
+        print("tracking profile: no device time recorded; busy share not "
+              "measured")
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return steady, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2716,7 +3440,9 @@ def main() -> int:
     # counted by branch and its output read as K5 reads it (splat_coverage)
     col_a = solver_a.colliders.mesh_colliders[0]
 
-    def splat_check(label, pts, vals, g, bounds_check=True):
+    def splat_check(label, pts, vals, g, bounds_check=True,
+                    launches_of=None):
+        launches_of = launches_a if launches_of is None else launches_of
         args = (pts, vals, g, g / 2.0, bounds_check)
         counts = torch.zeros(2, dtype=torch.int32, device=dev)
         out = ksplat.splat(*args, branch_counts=counts)
@@ -2748,7 +3474,7 @@ def main() -> int:
               "mpmavatar_tpu/ops/pallas_transfer.py:561",
               lambda: ksplat.splat(*args), lambda: ksplat.splat_plain(*args),
               4 * (n_pts * (3 + ch) + g ** 3 * (ch + 1)),
-              n_pts * (30 + 54.0 * (ch + 1)), launches_a, label=label,
+              n_pts * (30 + 54.0 * (ch + 1)), launches_of, label=label,
               err=tol, extra={"fill_ms": fill_ms, "points": n_pts,
                               "channels": ch, "grid": g,
                               "tile_warps": tile, "direct_warps": direct,
@@ -2869,7 +3595,8 @@ def main() -> int:
     print(f"sand_stress_plain: {sand_ops_plain:.0f} FP32 operations per "
           f"particle (plain_ops)")
 
-    def sand_check(label, args):
+    def sand_check(label, args, launches_of=None):
+        launches_of = launches_b if launches_of is None else launches_of
         f_new, st_k, br = kstress.sand_stress(*args, return_branch=True)
         f_ref, st_ref, br_ref = kstress.sand_stress_plain(
             *args, return_branch=True)
@@ -2900,7 +3627,7 @@ def main() -> int:
               lambda: kstress.sand_stress(*args),
               lambda: kstress.sand_stress_plain(*args),
               4 * (30 * n_t + 9 * (n_t - n_sel)) + 4,
-              sand_ops(sand_ops_plain, counts), launches_b, label=label,
+              sand_ops(sand_ops_plain, counts), launches_of, label=label,
               err=(max(f_err, s_err), ok, verdict),
               extra={"branch_flips": int(flips.sum()), "particles": n_t,
                      "selected": n_sel,
@@ -3111,7 +3838,23 @@ def main() -> int:
                                              body_p_cpu, per_sub_a)
 
     # ---- 11. the stage-2 and stage-4 tools ------------------------------
-    cli_ms, cli_launches = stage24_path(dev, smi)
+    import shutil
+    work24 = REPO / "output" / "chip_smoke_stage24"
+    shutil.rmtree(work24, ignore_errors=True)
+    try:
+        cli_ms, cli_launches = stage24_path(dev, smi, work24)
+
+        # ---- 12. the zero-shot demo ------------------------------------
+        per_sub_demo = dict(per_sub, splat=1, sand_stress=1)
+        demo_ms, demo_launches = demo_path(
+            dev, smi, {"p2g": p2g_check, "splat": splat_check,
+                       "sand": sand_check}, per_sub_demo)
+
+        # ---- 13. stage-1 tracking on phase 11's capture ----------------
+        track_ms, track_launches = tracking_path(
+            dev, smi, work24 / "capture", work24, check)
+    finally:
+        shutil.rmtree(work24, ignore_errors=True)
 
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
@@ -3119,7 +3862,8 @@ def main() -> int:
           + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
           + f" ms/frame; train step {train_ms:.4f} ms; material train step "
           f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep; stage-2 "
-          f"CLI step {cli_ms:.4f} ms on {smi}; "
+          f"CLI step {cli_ms:.4f} ms; demo {demo_ms:.4f} ms/substep; "
+          f"tracking {track_ms:.4f} ms/iteration on {smi}; "
           f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
@@ -3132,7 +3876,9 @@ def main() -> int:
             "train_step": train_launches.get(entry["name"], 0),
             "material_train_step": mat_launches.get(entry["name"], 0),
             "posed_body": pose_launches.get(entry["name"], 0),
-            "stage2_cli": cli_launches.get(entry["name"], 0)}
+            "stage2_cli": cli_launches.get(entry["name"], 0),
+            "demo": demo_launches.get(entry["name"], 0),
+            "tracking": track_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

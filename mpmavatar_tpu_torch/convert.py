@@ -17,7 +17,10 @@ package's AvatarParams pytree.  ``material_params_from_numpy`` sets a
 material trainer's D, E, H and its Adam state (optax's ``mu``, ``nu``,
 ``count``).  ``smplx_model_from_numpy`` and ``vposer_from_numpy`` carry
 the avatar's SMPL-X model and VPoser decoder, ``lpips_params_from_numpy``
-the LPIPS network's weights.  Tests use these so both
+the LPIPS network's weights, ``shadow_variant_params_from_numpy`` any
+nested layer dict of ``render/layers.py`` (the shadow variants), and
+``tracking_params_from_numpy`` the tracker's parameters.  Tests use
+these so both
 packages start from identical data.
 """
 
@@ -195,3 +198,22 @@ def lpips_params_from_numpy(params: dict, device=None) -> LPIPS:
     ``utils/lpips.py``: conv{i}_w/conv{i}_b, lin{i}_w)."""
     return LPIPS({k: np.asarray(v) for k, v in params.items()},
                  device=device)
+
+
+def shadow_variant_params_from_numpy(params, device=None):
+    """A nested parameter dict (``render/layers.py``'s layers, the shadow
+    variants of ``render/shadow_variants.py``) with every leaf a float32
+    tensor on ``device``; the names and layouts are the JAX package's."""
+    device = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: shadow_variant_params_from_numpy(v, device)
+                for k, v in params.items()}
+    return torch.tensor(np.asarray(params, np.float32), device=device)
+
+
+def tracking_params_from_numpy(params: dict, device=None) -> dict:
+    """The stage-1 tracker's parameter dict (vertices, rgb_colors,
+    logit_opacities, log_scales, cam_m, cam_c) as float32 tensors."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}

@@ -6,7 +6,8 @@ the face frames, the world-space views, the densification statistics,
 The gaussian set lives in capacity-padded tensors with an ``alive`` mask,
 as in the JAX package, so the render shapes stay fixed while the set
 grows or shrinks: prune masks slots off, clone and split write into free
-slots.  ``init_from_pcd`` is not ported (it needs the native KD-tree).
+slots.  ``init_from_pcd`` takes its scales from the native KD-tree
+(``native/``), or from dense distances where that library is missing.
 """
 
 from __future__ import annotations
@@ -288,3 +289,42 @@ def reset_opacity(g: GaussianParams, ceiling: float = 0.01) -> GaussianParams:
     """Cap every opacity at ``ceiling``."""
     top = inverse_sigmoid(torch.tensor(ceiling, device=g.opacity.device))
     return dataclasses.replace(g, opacity=torch.minimum(g.opacity, top))
+
+
+def init_from_pcd(points, colors, sh_degree: int,
+                  capacity: Optional[int] = None,
+                  device=None) -> GaussianParams:
+    """Unbound 3DGS init from a point cloud: each scale from the mean
+    squared distance to the 3 nearest other points (the native KD-tree;
+    without it the dense O(N^2) distances, as the JAX package falls
+    back)."""
+    device = resolve_device(device)
+    points = np.asarray(points, np.float32)
+    n = len(points)
+    cap = capacity or n
+    n_rest = (sh_degree + 1) ** 2 - 1
+    try:
+        from ..native import knn
+        dist2 = np.maximum(knn.mean_dist2_3nn(points), 1e-7)
+    except Exception:
+        d2 = np.sum((points[:, None] - points[None]) ** 2, -1)
+        np.fill_diagonal(d2, np.inf)
+        dist2 = np.maximum(np.sort(d2, 1)[:, :3].mean(1), 1e-7)
+    scales = np.log(np.sqrt(dist2))[:, None].repeat(3, 1)
+    f32 = dict(dtype=torch.float32, device=device)
+    xyz = torch.zeros((cap, 3), **f32)
+    xyz[:n] = torch.as_tensor(points, **f32)
+    dc = torch.zeros((cap, 1, 3), **f32)
+    dc[:n, 0] = rgb2sh(torch.as_tensor(np.asarray(colors, np.float32),
+                                       **f32))
+    scaling = torch.zeros((cap, 3), **f32)
+    scaling[:n] = torch.as_tensor(scales.astype(np.float32), **f32)
+    rotation = torch.zeros((cap, 4), **f32)
+    rotation[:, 0] = 1.0
+    return GaussianParams(
+        xyz=xyz, features_dc=dc,
+        features_rest=torch.zeros((cap, n_rest, 3), **f32),
+        scaling=scaling, rotation=rotation,
+        opacity=torch.full((cap, 1), float(np.log(0.1 / 0.9)), **f32),
+        binding=torch.zeros((cap,), dtype=torch.int64, device=device),
+        alive=torch.arange(cap, device=device) < n)

@@ -103,6 +103,17 @@ def covariance_from_scaling_rotation(scaling, scaling_modifier, q):
     return torch.sum(l[..., :, None, :] * l[..., None, :, :], -1)
 
 
+def vertex_normals(verts, faces):
+    """Area-weighted outward vertex normals."""
+    faces = faces.long()
+    fn = cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+               verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = torch.zeros_like(verts)
+    for i in range(3):
+        vn = vn.index_add(0, faces[:, i], fn)
+    return safe_normalize(vn)
+
+
 def find_adjacent_faces(faces_np):
     """For each face, its 3 edge-adjacent faces (itself where a face has
     fewer); host-side numpy, called once at setup."""

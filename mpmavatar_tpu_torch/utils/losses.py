@@ -1,5 +1,6 @@
 """Training losses, port of mpmavatar_tpu/utils/losses.py (L1, L2, PSNR,
-windowed SSIM).  Images are (C, H, W) or (B, C, H, W) in [0, 1].
+windowed SSIM, the cloth-body collision penalty).  Images are (C, H, W)
+or (B, C, H, W) in [0, 1].
 
 SSIM's separable gaussian filter is, as in the JAX package, two banded
 Toeplitz matrix products (one per image axis, zero padding, the same
@@ -67,3 +68,16 @@ def ssim(img1, img2, window_size: int = 11, size_average: bool = True):
     if size_average:
         return torch.mean(ssim_map)
     return torch.mean(ssim_map, dim=(1, 2, 3))
+
+
+def collision_loss(cloth_v, smplx_v, smplx_vn, eps: float = 1e-3):
+    """Nearest-neighbour interpenetration penalty: each cloth vertex's
+    nearest body vertex (squared distances expanded as the JAX package
+    expands them, so the same vertex wins), the signed distance along
+    that vertex's outward normal, and the mean of max(eps - distance,
+    0)."""
+    d2 = (torch.sum(cloth_v ** 2, -1)[:, None] - 2.0 * cloth_v @ smplx_v.T
+          + torch.sum(smplx_v ** 2, -1)[None, :])
+    nn = torch.argmin(d2, dim=-1)
+    distance = torch.sum(smplx_vn[nn] * (cloth_v - smplx_v[nn]), -1)
+    return torch.sum(torch.clamp_min(eps - distance, 0.0)) / cloth_v.shape[0]

@@ -1349,3 +1349,68 @@ def test_avatar_checkpoint_round_trip_on_the_card(dev, tmp_path):
         assert torch.equal(getattr(loaded, f), getattr(params, f)), f
     assert all(torch.equal(loaded.shadow[key], v)
                for key, v in params.shadow.items())
+
+
+def test_demo_cut_scene_goes_through_the_kernels_and_matches_the_cpu(dev):
+    """chip_smoke's cut demo scene (a 48 x 48 skirt, 3,000 sand held by
+    live release windows, the body and the chair in contact, 64^3): 10
+    substeps launch K1, K2, K5, K3, K4 (the collider) and K8 once each
+    and match the CPU plain path (x 2e-5, v 1e-3)."""
+    s_k, st_k, m_k, in_k = chip_smoke.demo_cut_scene(dev, True)
+    s_c, _, m_c, in_c = chip_smoke.demo_cut_scene("cpu", True)
+    g = torch.Generator(device=dev).manual_seed(4)
+    a0 = dataclasses.replace(st_k, v=st_k.v + 0.05 * torch.randn(
+        st_k.v.shape, generator=g, device=dev))
+    _build.reset_launch_counts()
+    out, _ = s_k.frame(a0, m_k, DT, 10, 0.0, **in_k)
+    assert _build.launch_counts() == {
+        "cloth_stress": 10, "p2g": 10, "grid_pipeline": 10, "g2p": 10,
+        "splat": 10, "sand_stress": 10}
+    ref, _ = s_c.frame(a0.to("cpu"), m_c, DT, 10, 0.0, **in_c)
+    for name, atol in (("x", 2e-5), ("v", 1e-3)):
+        err = float((getattr(out, name).cpu() - getattr(ref, name)).abs()
+                    .max())
+        assert err < atol, (name, err)
+
+
+def test_tracking_loss_through_k6_k7_matches_the_cpu(dev):
+    """One tracking loss and its gradient w.r.t. every parameter on a
+    jittered 6 x 6 cloth at 32^2 through the worklist compositor: K6 and
+    K7 twice each on the card, the loss within 1e-5 and each gradient
+    within 1e-4 of its largest entry of the CPU's."""
+    from mpmavatar_tpu_torch.render import camera_arrays
+    from mpmavatar_tpu_torch.render.cameras import Camera
+    from mpmavatar_tpu_torch.train import tracking as tt
+    rng = np.random.default_rng(0)
+    verts, faces = build_cloth(6, 6, y0=0.0, extent=0.8)
+    verts = (verts - np.float32([1.0, 0.0, 1.0]))[:, [0, 2, 1]]
+    verts[:, 2] = 0.03 * rng.normal(size=len(verts))
+    cam = Camera.from_kw2c("t", 32, 32, np.array(
+        [[20.0, 0, 16], [0, 20.0, 16], [0, 0, 1]]), np.array(
+        [[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 2.0], [0, 0, 0, 1]]),
+        near=0.5, far=20.0)
+    gt = rng.random((3, 32, 32)).astype(np.float32)
+    msk = (rng.random((1, 32, 32)) > 0.2).astype(np.float32)
+    colors = rng.uniform(0.2, 0.8, (len(faces), 3)).astype(np.float32)
+    cfg = tt.TrackingConfig(tile_capacity=64, work_cap=256)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = tt.init_tracking_params(verts, faces, 2, d)
+        with torch.no_grad():
+            params["rgb_colors"].copy_(torch.as_tensor(colors))
+        for v in params.values():
+            v.requires_grad_(True)
+        var = tt.init_tracking_variables(verts, faces, None, d)
+        _build.reset_launch_counts()
+        loss, _ = tt.tracking_loss(
+            params, var, camera_arrays(cam, d), 32, 32, 1,
+            torch.as_tensor(gt, device=d), torch.as_tensor(msk, device=d),
+            None, None, None, True, cfg)
+        loss.backward()
+        out[d.type] = (float(loss), {k: v.grad.cpu() for k, v in
+                                     params.items()},
+                       _build.launch_counts())
+    assert out["cuda"][2] == {"composite": 2, "composite_bwd": 2}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5
+    for k, ref in out["cpu"][1].items():
+        assert _rel_err(out["cuda"][1][k], ref) <= 1e-4, k

@@ -205,7 +205,40 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      against their plain versions on the card, beside K7's output
      detached; K6 and K7 against their plain versions on one more
      iteration's own worklists and cotangents (phases 6 and 7's checks);
-     ms per iteration, peak memory and a profile of one more iteration.
+     ms per iteration, peak memory and a profile of one more iteration;
+ 14. multi-device at world size 1, over a one-rank NCCL group in this
+     process (the machine has one card, and NCCL refuses two ranks on
+     one device; the cross-rank logic is held on the CPU over gloo by
+     tests/test_torch_parallel.py and test_torch_appearance_dp.py): the
+     sharded frame (parallel/sharded.py) on path B's scene at full
+     width, the sphere as its (F, 3, 3) triangles, FRAMES x SUBSTEPS
+     substeps with the launch counters reset just before and read just
+     after (path B's: K1, K2, K3, K5, K8 once and K4 twice per
+     substep), finite, its ms per substep beside MPMSolver.frame's on
+     the same scene, a profile of 20 more substeps (device busy and
+     idle, the collectives' share); over COMPARE_SUBSTEPS substeps
+     against MPMSolver.frame on the card at PATH_ATOL, on path B's
+     scene with the sphere wound outward, its top through the cloth and
+     rising (MD_BODY_CENTER),
+     beside the collider dropped; K5 on the second half of phase 4's
+     128^3 grid from its first cell against its plain version (timed,
+     with its bound) and against the whole grid's second half, and
+     every branch on the slab; the sharded material step at phase 9's
+     shape (MAT_FRAMES x MAT_SUBSTEPS substeps, each checkpointed):
+     launches, ms per step, peak memory, each leaf's gradient against
+     the single-device autograd of the same loss on the card beside
+     K1's outputs detached; the data-parallel stage-2 step
+     (parallel/appearance_dp.py) on phase 7's avatar with DP_SAMPLES
+     samples (K6 and K7 twice each per sample): its gradients against
+     the mean of the single-device ``make_loss_and_grads`` per leaf,
+     beside the first sample's alone, ms per step and peak memory;
+ 15. the production recovery: train/stage3_production.py --recover at
+     full width (the 158 x 158 hanging cloth, 74,262 particles, 200^3,
+     1 x 400 substeps, REC_STEPS steps) with the launch counters reset
+     just before and read just after: finite, the synthetic trajectory
+     moving by more than 0.01, the loss falling over the steps, each
+     parameter's move toward TRUTH or away printed; s per step and
+     peak memory, the trace in the output directory.
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -431,6 +464,36 @@ TRACK_ITERS, TRACK_WORK_CAP, TRACK_WARM = (30, 10), 8192, 2
 TRACK_FACES = 50244
 TRACK_GRAD_TOL = 1e-3
 TRACK_LEAVES = ("vertices", "rgb_colors", "cam_m", "cam_c")
+
+# multi-device at world size 1 (phase 14): the card's machine has one
+# card and NCCL refuses two ranks on one device, so the sharded paths run
+# over a one-rank NCCL group in this process (the cross-rank logic is held
+# on the CPU over gloo, tests/test_torch_parallel.py).  The sharded frame
+# on path B's scene (the sphere as (F, 3, 3) triangles), its launches per
+# substep held to path B's; over COMPARE_SUBSTEPS substeps against
+# MPMSolver.frame on the card at PATH_ATOL, on path B's scene with the
+# sphere at MD_BODY_CENTER (so that the collider acts), beside the
+# collider dropped; K5 on the
+# second half of phase 4's 128^3 grid against its plain version; the
+# sharded material step at phase 9's shape over MAT_FRAMES x MAT_SUBSTEPS
+# substeps against the single-device autograd of the same loss per leaf
+# (MD_GRAD_TOL of the leaf's magnitude, or of a millionth of the largest
+# leaf's where a leaf's own is smaller), beside K1's outputs detached;
+# the data-parallel stage-2 step on phase 7's avatar with DP_SAMPLES
+# samples (K6 and K7 twice each per sample) against the mean of the
+# single-device gradients per leaf at STEP_GRAD_TOL, beside the first
+# sample's gradient alone, then DP_STEPS timed steps
+MD_GRAD_TOL = 1e-3
+# the comparison's contact: path B's sphere (r 0.25) wound outward, its
+# top 0.01 above the cloth (at 250^3 a top 0.02 under the cloth, as
+# CONTACT's at 64^3, lies 2.5 cells away and acts on no cloth node in 10
+# substeps), rising at CONTACT_MESH_V
+MD_BODY_CENTER = (1.0, 1.06, 1.0)
+DP_SAMPLES, DP_STEPS = 2, 5
+# the production recovery (phase 15): train/stage3_production.py
+# --recover at full width (158^2 hanging cloth: 24,964 vertices, 49,298
+# faces, 74,262 particles; 200^3; 1 x 400 substeps), REC_STEPS steps
+REC_NX, REC_GRID, REC_SUBSTEP, REC_STEPS = 158, 200, 400, 2
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -3175,6 +3238,500 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
     return steady, launches
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def uniform_model(model, mesh_friction):
+    """The sharded path's UniformModel of a uniform MPMModel."""
+    from mpmavatar_tpu_torch.parallel import UniformModel
+    return UniformModel(mu=model.mu[0], lam=model.lam[0],
+                        gamma=model.gamma[0], kappa=model.kappa[0],
+                        friction_coeff=model.friction_coeff,
+                        gravity=model.gravity, mesh_friction=mesh_friction,
+                        alpha=model.alpha)
+
+
+def sharded_scene(solver, state, model, scene, group, substeps,
+                  with_mesh=True):
+    """A bench scene's single-device set-up as the sharded frame's at
+    world size 1: (frame, state, um, inputs); the collider mesh as its
+    (F, 3, 3) triangles."""
+    from mpmavatar_tpu_torch.parallel import (make_sharded_cloth_state,
+                                              make_sharded_frame)
+    cfg = solver.cfg
+    col = solver.colliders.mesh_colliders[0]
+    frame = make_sharded_frame(
+        cfg, group, substeps, DT, num_joint_v=cfg.num_joint_v,
+        grid_post=solver.colliders.grid_post, with_mesh=with_mesh,
+        with_joints=True, num_joint_f=cfg.num_joint_f)
+    inputs = (scene["joint_verts_v"], scene["joint_faces_v"])
+    if with_mesh:
+        inputs = (scene["mesh_x"][col.faces], scene["mesh_v"][col.faces],
+                  *inputs)
+    return (frame, make_sharded_cloth_state(cfg, state, 1),
+            uniform_model(model, col.friction), inputs)
+
+
+def sharded_blocks(st):
+    """(x, v) of a world-1 ShardedClothState in the MPMState layout."""
+    import torch
+    return (torch.cat([st.xe, st.xt, st.xv]),
+            torch.cat([st.ve, st.vt, st.vv]))
+
+
+def multi_device_path(dev, check, per_sub, k5) -> dict:
+    """Phase 14: the sharded frame, K5 on a slab, the sharded material
+    step and the data-parallel stage-2 step over a one-rank NCCL group.
+    Returns {path: (ms, launches)}."""
+    import torch
+    import torch.distributed as dist
+    if not dist.is_nccl_available():
+        raise AssertionError("phase 14: NCCL is not available")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        print(f"multi-device: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+              f", world size {dist.get_world_size(group)} (one card; NCCL "
+              "refuses two ranks on one device)")
+        out = {"sharded_frame": sharded_frame_path(dev, group, check,
+                                                   per_sub, k5)}
+        out["sharded_material_step"] = sharded_material_path(dev, group)
+        out["dp_step"] = dp_step_path(dev, group)
+        torch.cuda.synchronize()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_frame_path(dev, group, check, per_sub, k5) -> tuple:
+    """The sharded frame on path B at full width, K5 on a slab; returns
+    (steady ms/substep, launches)."""
+    import torch
+    from mpmavatar_tpu_torch.core.types import build_body_sphere
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import grid_pipeline as gp
+    from mpmavatar_tpu_torch.sim import bench_scene
+    solver, state0, model, scene = bench_scene.build(GRID_B, SAND_B,
+                                                     device=dev)
+    cfg = solver.cfg
+    frame, st, um, ins = sharded_scene(solver, state0, model, scene, group,
+                                       SUBSTEPS)
+    print(f"sharded frame (path B: {GRID_B}^3, P={cfg.n_particles}, "
+          f"{ins[0].shape[0]} collider triangles, {cfg.num_joint_v} + "
+          f"{cfg.num_joint_f} joint points), {FRAMES} x {SUBSTEPS} substeps")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    frame_s = []
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        st = frame(st, um, *ins)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        if not all(bool(torch.isfinite(getattr(st, k)).all())
+                   for k in ("xe", "xv", "xt", "ve", "vv", "vt", "Ft", "d")):
+            raise AssertionError(f"sharded frame {f}: non-finite state")
+    launches = _build.launch_counts()
+    want = {k: v * FRAMES * SUBSTEPS for k, v in per_sub.items()}
+    if launches != want:
+        raise AssertionError(f"sharded frame: launches {launches}, expected "
+                             f"{want}")
+    ms = 1e3 * frame_s[-1] / SUBSTEPS
+    # MPMSolver.frame on the same scene, timed the same way
+    s, t, single_s = state0, 0.0, []
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        s, t = solver.frame(s, model, DT, SUBSTEPS, t, **scene)
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+    ms_single = 1e3 * single_s[-1] / SUBSTEPS
+    x_sh, v_sh = sharded_blocks(st)
+    print(f"sharded frame: launches {launches} in {FRAMES * SUBSTEPS} "
+          f"substeps; frame wall times {[round(x, 4) for x in frame_s]} s, "
+          f"steady {ms:.4f} ms/substep; MPMSolver.frame on the same scene "
+          f"{[round(x, 4) for x in single_s]} s, steady {ms_single:.4f} "
+          f"ms/substep: the sharded frame's overhead "
+          f"{100 * (ms / ms_single - 1):.1f}%; after {FRAMES * SUBSTEPS} "
+          f"substeps the two differ by x "
+          f"{float((x_sh - s.x).abs().max()):.3e}, v "
+          f"{float((v_sh - s.v).abs().max()):.3e}")
+    frame_p = sharded_scene(solver, state0, model, scene, group,
+                            PROFILE_SUBSTEPS)[0]
+    busy_s, prof_wall, rows = profile_device(lambda: frame_p(st, um, *ins))
+    n = PROFILE_SUBSTEPS
+    (OUT / "chip_smoke_profile_sharded_frame.txt").write_text("\n".join(
+        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
+    if rows:
+        # at one rank NCCL copies; the collectives' clones are copies too
+        coll = sum(us for key, us, _ in rows if "nccl" in key.lower()
+                   or "memcpy dtod" in key.lower())
+        print(f"sharded frame profile of {n} substeps: device busy "
+              f"{1e3 * busy_s / n:.4f} ms/substep in "
+              f"{sum(r[2] for r in rows) / n:.1f} kernels/substep, idle "
+              f"{100 * max(0.0, 1 - busy_s / n / (ms * 1e-3)):.1f}% against "
+              f"the steady frame; the collectives (NCCL kernels and "
+              f"device-to-device copies) "
+              f"{coll / n / 1e3:.4f} ms/substep, "
+              f"{100 * coll * 1e-6 / busy_s:.1f}% of the device time")
+        for key, us, calls in rows[:12]:
+            print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
+                  f"{key[:90]}")
+    else:
+        print("sharded frame profile: the profiler recorded no device time; "
+              "device busy not measured")
+
+    # against MPMSolver.frame over COMPARE_SUBSTEPS substeps, in contact
+    faces_out = build_body_sphere(center=MD_BODY_CENTER,
+                                  r=bench_scene.BODY_R)[1][:, [0, 2, 1]]
+    s_c, st_c, m_c, sc_c = bench_scene.build(
+        GRID_B, SAND_B, body_center=MD_BODY_CENTER, device=dev)
+    s_c.colliders = dataclasses.replace(s_c.colliders, mesh_colliders=())
+    s_c.add_mesh_collider(faces_out, friction=0.5)
+    sc_c["mesh_v"] = torch.tensor(CONTACT_MESH_V, device=dev).expand(
+        sc_c["mesh_x"].shape).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(4000)
+    st_c = dataclasses.replace(st_c, v=st_c.v + 0.05 * torch.randn(
+        st_c.v.shape, generator=gen, device=dev))
+    ref = s_c.frame(st_c, m_c, DT, COMPARE_SUBSTEPS, 0.0, **sc_c)[0]
+    errs = {}
+    for name, with_mesh in (("sharded", True), ("collider dropped", False)):
+        f_c, sh, um_c, ins_c = sharded_scene(s_c, st_c, m_c, sc_c, group,
+                                             COMPARE_SUBSTEPS, with_mesh)
+        x, v = sharded_blocks(f_c(sh, um_c, *ins_c))
+        errs[name] = (float((x - ref.x).abs().max()),
+                      float((v - ref.v).abs().max()))
+    print(f"sharded frame against MPMSolver.frame over {COMPARE_SUBSTEPS} "
+          f"substeps (path B, the sphere wound outward, its top 0.01 above "
+          f"the cloth, rising at {CONTACT_MESH_V[1]} m/s): x "
+          f"{errs['sharded'][0]:.3e} (tol {PATH_ATOL['x']:.0e}), v "
+          f"{errs['sharded'][1]:.3e} (tol {PATH_ATOL['v']:.0e}); wrong path "
+          f"(the collider dropped): x {errs['collider dropped'][0]:.3e}, v "
+          f"{errs['collider dropped'][1]:.3e}")
+    if not (errs["sharded"][0] <= PATH_ATOL["x"]
+            and errs["sharded"][1] <= PATH_ATOL["v"]
+            < errs["collider dropped"][1]):
+        raise AssertionError("the sharded frame disagrees with MPMSolver."
+                             "frame, or the limit does not separate the "
+                             "wrong path")
+
+    # K5 on the second half of phase 4's 128^3 grid (path A's fields)
+    pipeline, k5_in, surf, cfg_a, full, full_in, full_surf = k5
+    n_cells = GRID ** 3
+    half = n_cells // 2
+    sl = [a[half:] if torch.is_tensor(a) and a.dim() and a.shape[0] ==
+          n_cells else a for a in k5_in]
+    out = pipeline(*sl, 0.01, DT, surf, cell_start=half)
+    plain = lambda: gp.grid_pipeline_plain(*sl, surf, 0.01, DT, GRID,
+                                           cfg_a.dx, (0,), False, 3,
+                                           cell_start=half)
+    whole = pipeline(*k5_in, 0.01, DT, surf)
+    if not torch.equal(out, whole[half:]):
+        raise AssertionError("K5 on the slab differs from the whole grid's "
+                             "second half")
+    active = int((sl[1] > 1e-15).sum())
+    covered = int((sl[3] > 1e-15).sum())
+    movered = int((sl[5] > 1e-15).sum())
+    check("grid_pipeline", [out], [plain()], "grid_pipeline.cu",
+          "mpmavatar_tpu/ops/pallas_grid_pipeline.py:149",
+          lambda: pipeline(*sl, 0.01, DT, surf, cell_start=half), plain,
+          4 * (6 * half + 3 * active + 6 * covered + 3 * movered),
+          60.0 * half, launches,
+          label=f"grid_pipeline (a slab: the second half of {GRID}^3, path "
+          f"A's fields, from cell {half})",
+          extra={"cell_start": half, "cells": half})
+    fl = [a[half:] if a.dim() and a.shape[0] == n_cells else a
+          for a in full_in]
+    e_abs, e_rel = rel_err(
+        [full(*fl, 0.01, DT, full_surf, cell_start=half)],
+        [gp.grid_pipeline_plain(*fl, full_surf, 0.01, DT, GRID, cfg_a.dx,
+                                (0, 1, 2), True, 3, cell_start=half)])
+    print(f"grid_pipeline on the slab, mesh+mover+sticky+slip+frictional+"
+          f"bbox: max_abs_err {e_abs:.3e}, rel {e_rel:.3e}; the slab equals "
+          f"the whole grid's second half exactly")
+    if e_rel > KERNEL_REL_TOL["grid_pipeline"]:
+        raise AssertionError("grid_pipeline on a slab (all branches) "
+                             "disagrees")
+    return ms, launches
+
+
+def sharded_material_path(dev, group) -> tuple:
+    """The sharded material step at phase 9's shape against the
+    single-device autograd of the same loss; returns (ms/step,
+    launches)."""
+    from unittest import mock
+    import torch
+    from mpmavatar_tpu_torch.core.colliders import ColliderSet, MeshCollider
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.parallel import (make_sharded_cloth_state,
+                                              make_sharded_material_step,
+                                              sharded)
+    from mpmavatar_tpu_torch.sim import MPMSolver, reset_density, set_E_nu
+    tr, _, _ = material_trainer(dev, MAT_GRID, MAT_FRAMES, MAT_SUBSTEPS)
+    cfg = tr.static
+    n_sub = MAT_FRAMES * MAT_SUBSTEPS
+    col = tr.solver.colliders.mesh_colliders[0]
+    data = tr._rollout_data
+    state = dataclasses.replace(
+        reset_density(tr.base_state, 1.0),
+        R_inv=tr._rest_dir_inv(torch.tensor(1.0, device=dev)))
+    model = set_E_nu(tr.model0, E=100.0)
+    mesh_x, mesh_v = data["smplx_sim"][0], data["smplx_velo_sim"][0]
+    jv, target = data["joint_velo_sim"][0], data["target_sim"][-1]
+    um = uniform_model(model, col.friction)
+    step = make_sharded_material_step(cfg, group, n_sub, DT,
+                                      num_joint_v=cfg.num_joint_v)
+    sh = make_sharded_cloth_state(cfg, state, 1)
+    args = (sh, um, mesh_x[col.faces], mesh_v[col.faces], jv, target)
+    step(*args)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss, grads, _ = step(*args)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # forward + each substep's recompute: the kernels twice per substep
+    per = {"cloth_stress": 1, "p2g": 1, "grid_pipeline": 1, "g2p": 1,
+           "splat": 2}
+    want = {k: 2 * v * n_sub for k, v in per.items()}
+    if launches != want:
+        raise AssertionError(f"sharded material step: launches {launches}, "
+                             f"expected {want}")
+
+    # the same loss's gradient on one device: MPMSolver's substeps
+    leaves = {f.name: getattr(um, f.name).detach().clone().requires_grad_(
+        True) for f in dataclasses.fields(um)}
+    P = cfg.n_particles
+    model_l = dataclasses.replace(
+        model, mu=leaves["mu"].expand(P), lam=leaves["lam"].expand(P),
+        gamma=leaves["gamma"].expand(P), kappa=leaves["kappa"].expand(P),
+        friction_coeff=leaves["friction_coeff"], gravity=leaves["gravity"],
+        alpha=leaves["alpha"])
+    solver = MPMSolver(cfg, device=dev)
+    solver.colliders = ColliderSet(mesh_colliders=(MeshCollider(
+        faces=col.faces, friction=leaves["mesh_friction"]),),
+        use_particle_mover=True)
+    t0 = time.perf_counter()
+    out, _ = solver.frame(state, model_l, DT, n_sub, 0.0, mesh_x=mesh_x,
+                          mesh_v=mesh_v, joint_verts_v=jv, remat=True)
+    err = torch.sum((out.x[cfg.n_elements:] - target) ** 2)
+    ref_loss = err / (3.0 * cfg.n_vertices)
+    ref = torch.autograd.grad(ref_loss, list(leaves.values()),
+                              allow_unused=True)
+    torch.cuda.synchronize()
+    ref_ms = 1e3 * (time.perf_counter() - t0)
+    ref = {k: torch.zeros_like(leaves[k]) if g is None else g
+           for k, g in zip(leaves, ref)}
+    real = sharded._stress.cloth_stress
+    with mock.patch.object(sharded._stress, "cloth_stress",
+                           lambda *a: tuple(t.detach() for t in real(*a))):
+        _, wrong, _ = step(*args)
+    floor = 1e-6 * max(float(g.abs().max()) for g in ref.values())
+
+    def leaf_errs(g):
+        return {k: float((getattr(g, k) - r).abs().max())
+                / max(float(r.abs().max()), floor) for k, r in ref.items()}
+
+    sound, bad = leaf_errs(grads), leaf_errs(wrong)
+    print(f"sharded material step (phase 9's shape, P={P}, {MAT_GRID}^3, "
+          f"{n_sub} substeps, each checkpointed): {ms:.4f} ms/step (after "
+          f"a warm-up step), peak allocated {peak / 2 ** 30:.3f} GiB; "
+          f"launches {launches}; loss {float(loss):.9e} against the "
+          f"single-device {float(ref_loss.detach()):.9e} ({ref_ms:.1f} ms with its "
+          f"rollout); gradients per leaf "
+          + ", ".join(f"{k} {float(ref[k].abs().max()):.3e}" for k in ref)
+          + "; rel err " + ", ".join(f"{k} {e:.3e}" for k, e in sound.items())
+          + f" (tol {MD_GRAD_TOL:.0e}); wrong path (K1's outputs detached): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in bad.items()))
+    ref_loss = float(ref_loss.detach())
+    if abs(float(loss) - ref_loss) > 1e-5 * abs(ref_loss):
+        raise AssertionError("the sharded material loss disagrees")
+    if not max(sound.values()) <= MD_GRAD_TOL < max(bad.values()):
+        raise AssertionError("the sharded material gradient disagrees with "
+                             "the single-device gradient, or the limit does "
+                             "not separate the wrong path")
+    return ms, launches
+
+
+def dp_step_path(dev, group) -> tuple:
+    """The data-parallel stage-2 step at world size 1 on phase 7's avatar
+    with DP_SAMPLES local samples; returns (ms/step, launches per
+    step)."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import OptimizationParams
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.parallel import appearance_dp as dp
+    from mpmavatar_tpu_torch.render import bench_render, camera_arrays
+    from mpmavatar_tpu_torch.render import gaussians as G
+    from mpmavatar_tpu_torch.train import appearance as tapp
+    from mpmavatar_tpu_torch.train import bench_appearance as bapp
+    raster = bench_render.AVATAR_RASTER
+    avatar, params, _, cam, gt_rgb, gt_msk, _ = bapp.build(dev)
+    W, H = cam[1], cam[2]
+    a = bench_render.AVATAR
+    # bench_appearance's camera, and one 0.1 farther back
+    cams = [bench_render.look_down_z(W, H, a["focal"], a["cam_z"] + dz,
+                                     a["near"], a["far"])
+            for dz in (0.0, 0.1)]
+    cam_b = dp.stack_camera_arrays(cams, dev)
+    rng = np.random.default_rng(2)
+    gt2 = torch.as_tensor(rng.random((3, H, W)).astype(np.float32),
+                          device=dev)
+    ts = list(range(DP_SAMPLES))
+    batch = (cam_b, torch.tensor(ts, device=dev), torch.tensor(ts, device=dev),
+             avatar.tensor("verts_orig", dev)[:DP_SAMPLES],
+             avatar.tensor("ao_maps", dev)[:DP_SAMPLES],
+             torch.stack([gt_rgb, gt2]), torch.stack([gt_msk, gt_msk]))
+    opt = OptimizationParams()
+    # the single-device gradients of each sample, before any update
+    loss_and_grads = tapp.make_loss_and_grads(avatar, opt, bapp.ACTIVE_SH,
+                                              False, **raster)
+    per_sample = []
+    for i, c in enumerate(cams):
+        _, _, g = loss_and_grads(params, i, i, camera_arrays(c, dev),
+                                 batch[5][i], batch[6][i], batch[4][i], W, H)
+        per_sample.append({k: v.detach().clone() for k, v in g.items()})
+    mean = {k: sum(g[k] for g in per_sample) / DP_SAMPLES
+            for k in per_sample[0]}
+    optimizer = tapp.make_optimizer(opt, bapp.EXTENT, params)
+    step = dp.make_dp_appearance_step(avatar, opt, optimizer, group,
+                                      bapp.ACTIVE_SH, False, W, H, **raster)
+    seen = {}
+    real = dp.apply_updates_float
+
+    def spy(opt_, p, grads):
+        seen.update({k: v.detach().clone() for k, v in grads.items()})
+        return real(opt_, p, grads)
+
+    ds = G.init_densify_state(params.splats.capacity, dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    dp.apply_updates_float = spy
+    try:
+        ds, loss, metrics = step(params, ds, *batch)
+    finally:
+        dp.apply_updates_float = real
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    want = {"composite": 2 * DP_SAMPLES, "composite_bwd": 2 * DP_SAMPLES}
+    if launches != want:
+        raise AssertionError(f"DP step: launches {launches}, expected {want}")
+    floor = 1e-6 * max(float(v.abs().max()) for v in mean.values())
+
+    def worst(g):
+        errs = {k: float((g[k] - mean[k]).abs().max())
+                / max(float(mean[k].abs().max()), floor) for k in mean}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    sound, bad = worst(seen), worst(per_sample[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DP_STEPS):
+        t0 = time.perf_counter()
+        ds, loss, metrics = step(params, ds, *batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    print(f"DP stage-2 step (world size 1, {DP_SAMPLES} local samples of "
+          f"phase 7's avatar, {W} x {H}): launches {launches} per step; "
+          f"the gradients of {len(mean)} leaves against the mean of the "
+          f"single-device make_loss_and_grads: max rel err {sound[0]:.3e} "
+          f"({sound[1]}; tol {STEP_GRAD_TOL:.0e}); wrong path (the first "
+          f"sample's alone): {bad[0]:.3e} ({bad[1]}); {DP_STEPS} steps "
+          f"{med:.4f} ms/step median ({min(times):.4f}-{max(times):.4f}), "
+          f"{med / DP_SAMPLES:.4f} ms per sample; loss {float(loss):.6f}, "
+          f"overflow {int(metrics['work_overflow'])} / "
+          f"{int(metrics['big_overflow'])}; densify denom max "
+          f"{float(ds.denom.max()):.0f}; peak allocated "
+          f"{peak / 2 ** 30:.3f} GiB")
+    if not sound[0] <= STEP_GRAD_TOL < bad[0]:
+        raise AssertionError("the DP step's gradient disagrees with the "
+                             "single-device mean, or the limit does not "
+                             "separate the wrong path")
+    if int(metrics["work_overflow"]) or not np.isfinite(float(loss)):
+        raise AssertionError("DP step: overflow or a non-finite loss")
+    return med, launches
+
+
+def recovery_path(dev, per_sub) -> tuple:
+    """Phase 15: train/stage3_production.py --recover at full width;
+    returns (s per step, launches)."""
+    import json as _json
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.train import stage3_production as S
+    trace_path = OUT / "chip_smoke_recover.jsonl"
+    args = S.parse_args(["--recover", "--nx", str(REC_NX), "--grid",
+                         str(REC_GRID), "--substep", str(REC_SUBSTEP),
+                         "--frames", "1", "--steps", str(REC_STEPS),
+                         "--out", str(trace_path), "--device", str(dev)])
+    traj = {}
+    synthesize = S.synthesize
+
+    def recorded(a):
+        traj["t"] = synthesize(a)[1]
+        return None, traj["t"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    S.synthesize = recorded
+    t0 = time.perf_counter()
+    try:
+        summary = S.run_recover(args)
+    finally:
+        S.synthesize = synthesize
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    trace = [_json.loads(x) for x in trace_path.read_text().splitlines()]
+    steps = trace[:-1]
+    t = traj["t"]
+    move = float(np.abs(t[-1] - t[0]).max())
+    # synthesize: one forward per substep; each train step: the forward
+    # and two recomputes (frame and substep checkpointed)
+    want = {k: v * REC_SUBSTEP * (1 + 3 * REC_STEPS)
+            for k, v in per_sub.items()}
+    init = {"D": 1.0, "E": 1.0, "H": 1.0}
+    toward = {k: abs(steps[-1][k] - S.TRUTH[k]) < abs(init[k] - S.TRUTH[k])
+              for k in S.TRUTH}
+    print(f"recovery (stage3_production --recover --nx {REC_NX} --grid "
+          f"{REC_GRID} --substep {REC_SUBSTEP} --steps {REC_STEPS}): "
+          f"{summary['particles']} particles, {len(t[0])} vertices; the "
+          f"trajectory at {S.TRUTH} moves {move:.4f}; steps "
+          + "; ".join(f"{r['step']}: loss {r['loss']:.9e}, {r['sec']} s, D "
+                      f"{r['D']:.6f}, E {r['E']:.6f}, H {r['H']:.6f}"
+                      for r in steps)
+          + f"; toward TRUTH after the last step: {toward}; err "
+          f"{summary['err']}; whole run {wall:.1f} s (steps "
+          f"{summary['wall_sec']} s); peak allocated {peak / 2 ** 30:.3f} "
+          f"GiB; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"recovery: launches {launches}, expected "
+                             f"{want}")
+    if not (np.isfinite(t).all() and move > 0.01 and all(
+            np.isfinite(r["loss"]) for r in steps)):
+        raise AssertionError("recovery: not finite, or the trajectory does "
+                             "not move")
+    if not (summary["particles"] == REC_NX ** 2 + 2 * (REC_NX - 1) ** 2
+            and steps[1]["loss"] < steps[0]["loss"]):
+        raise AssertionError("recovery: not the full width, or the loss did "
+                             "not fall")
+    return statistics.median(r["sec"] for r in steps), launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3856,6 +4413,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work24, ignore_errors=True)
 
+    # ---- 14. multi-device at world size 1 (one-rank NCCL group) --------
+    md = multi_device_path(dev, check, per_sub_b,
+                           (pipeline, k5_in, surf, cfg_a, full, full_in,
+                            full_surf))
+
+    # ---- 15. the production recovery ------------------------------------
+    rec_s, rec_launches = recovery_path(dev, per_sub_a)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
           f"ms/substep; render "
@@ -3863,7 +4428,10 @@ def main() -> int:
           + f" ms/frame; train step {train_ms:.4f} ms; material train step "
           f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep; stage-2 "
           f"CLI step {cli_ms:.4f} ms; demo {demo_ms:.4f} ms/substep; "
-          f"tracking {track_ms:.4f} ms/iteration on {smi}; "
+          f"tracking {track_ms:.4f} ms/iteration; sharded frame "
+          f"{md['sharded_frame'][0]:.4f} ms/substep, sharded material step "
+          f"{md['sharded_material_step'][0]:.4f} ms, DP stage-2 step "
+          f"{md['dp_step'][0]:.4f} ms; recovery {rec_s:.2f} s/step on {smi}; "
           f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
@@ -3878,7 +4446,10 @@ def main() -> int:
             "posed_body": pose_launches.get(entry["name"], 0),
             "stage2_cli": cli_launches.get(entry["name"], 0),
             "demo": demo_launches.get(entry["name"], 0),
-            "tracking": track_launches.get(entry["name"], 0)}
+            "tracking": track_launches.get(entry["name"], 0),
+            **{path: counts.get(entry["name"], 0)
+               for path, (_, counts) in md.items()},
+            "recover": rec_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

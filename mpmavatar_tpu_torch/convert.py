@@ -19,7 +19,10 @@ material trainer's D, E, H and its Adam state (optax's ``mu``, ``nu``,
 the avatar's SMPL-X model and VPoser decoder, ``lpips_params_from_numpy``
 the LPIPS network's weights, ``shadow_variant_params_from_numpy`` any
 nested layer dict of ``render/layers.py`` (the shadow variants), and
-``tracking_params_from_numpy`` the tracker's parameters.  Tests use
+``tracking_params_from_numpy`` the tracker's parameters;
+``sharded_state_from_numpy`` and ``uniform_model_from_numpy`` the
+multi-device state and material (the JAX package's ShardedClothState and
+UniformModel pytrees as arrays by field name).  Tests use
 these so both
 packages start from identical data.
 """
@@ -36,6 +39,7 @@ from .avatar.smplx import SMPLXModel
 from .avatar.vposer import VPoserDecoder
 from .core.colliders import MeshCollider
 from .core.types import MPMModel, MPMState
+from .parallel.sharded import ShardedClothState, UniformModel
 from .render.avatar_model import AvatarParams, MeshAvatar
 from .render.gaussians import DensifyState, GaussianParams
 from .render.rasterizer import CameraArrays
@@ -61,6 +65,18 @@ def state_from_numpy(arrays: dict, device=None) -> MPMState:
 
 def model_from_numpy(arrays: dict, device=None) -> MPMModel:
     return _from_numpy(MPMModel, arrays, device)
+
+
+def sharded_state_from_numpy(arrays: dict, device=None) -> ShardedClothState:
+    """ShardedClothState from field name -> array (faces as int32): the
+    whole padded state, or one rank's block of it."""
+    return _from_numpy(ShardedClothState, arrays, device)
+
+
+def uniform_model_from_numpy(arrays: dict, device=None) -> UniformModel:
+    """UniformModel from field name -> array (float32; 0-d for a uniform
+    scalar, or a block of per-element values)."""
+    return _from_numpy(UniformModel, arrays, device)
 
 
 def mesh_collider_from_numpy(faces, friction, device=None) -> MeshCollider:

@@ -157,9 +157,15 @@ def mesh_face_values(col: MeshCollider, mesh_x, mesh_v):
     the mean vertex velocity and the unit normal cross(p1-p0, p2-p0)
     (Fb, 6).  The collider resists motion against that normal, so a body
     mesh's faces wind counter-clockwise seen from outside."""
-    p0, p1, p2 = mesh_x[col.faces].unbind(1)
+    return triangle_values(mesh_x[col.faces], mesh_v[col.faces])
+
+
+def triangle_values(tri_x, tri_v):
+    """``mesh_face_values`` of triangles given by their corners' positions
+    and velocities, (Fb, 3, 3) each."""
+    p0, p1, p2 = tri_x.unbind(1)
     centroid = (p0 + p1 + p2) / 3.0
-    v0, v1, v2 = mesh_v[col.faces].unbind(1)
+    v0, v1, v2 = tri_v.unbind(1)
     fvel = (v0 + v1 + v2) / 3.0
     fnorm = linalg.cross(p1 - p0, p2 - p0)
     fnorm = fnorm / torch.clamp_min(linalg.safe_norm(fnorm, keepdim=True),
@@ -185,6 +191,12 @@ def apply_mesh_collider(cfg: MPMStaticConfig, col: MeshCollider, mesh_x,
     then strip the inward normal part of the velocity relative to the
     mesh, with Coulomb friction."""
     acc, grid_w = mesh_collider_fields(cfg, col, mesh_x, mesh_v)
+    return project_on_mesh(acc, grid_w, col.friction, grid_v_out)
+
+
+def project_on_mesh(acc, grid_w, friction, grid_v_out):
+    """The projection half of apply_mesh_collider on the collider splat's
+    fields (acc (N, 6), grid_w (N,)) and friction coefficient."""
     covered = grid_w > 1e-15
     mesh_vel = acc[:, :3] / torch.clamp_min(grid_w, 1e-15)[:, None]
     n = acc[:, 3:]
@@ -193,7 +205,7 @@ def apply_mesh_collider(cfg: MPMStaticConfig, col: MeshCollider, mesh_x,
     normal_comp = torch.sum(v_rel * n, dim=-1)
     v_proj = v_rel - torch.clamp_max(normal_comp, 0.0)[:, None] * n
     v_proj_len = linalg.safe_norm(v_proj)
-    fric_len = torch.clamp_min(v_proj_len + normal_comp * col.friction, 0.0)
+    fric_len = torch.clamp_min(v_proj_len + normal_comp * friction, 0.0)
     fric_active = (normal_comp < 0.0) & (v_proj_len > 1e-20)
     len_safe = torch.where(fric_active, v_proj_len, 1.0)
     v_fric = torch.where(fric_active[:, None],
@@ -250,18 +262,26 @@ def apply_particle_mover(cfg: MPMStaticConfig, state: MPMState, grid_v_out,
     return torch.where(covered[:, None], v, grid_v_out)
 
 
-def _grid_coords(cfg: MPMStaticConfig, dtype, device):
+def _grid_coords(cfg: MPMStaticConfig, dtype, device, cell_start: int,
+                 n: int):
+    """(idx (n, 3), pos (n, 3)) of the flat cells [cell_start,
+    cell_start + n) (x-major: flat = (x G + y) G + z)."""
     g = cfg.n_grid
-    ar = torch.arange(g, device=device)
-    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
-                      dim=-1).reshape(-1, 3)
+    f = cell_start + torch.arange(n, device=device)
+    idx = torch.stack([f // (g * g), (f // g) % g, f % g], dim=-1)
     return idx, idx.to(dtype) * cfg.dx
 
 
 def apply_grid_bc(cfg: MPMStaticConfig, col, grid_v_out, time: float,
-                  dt: float):
-    """Apply one grid-level BC (unfused path), dispatched on its type."""
-    idx, pos = _grid_coords(cfg, grid_v_out.dtype, grid_v_out.device)
+                  dt: float, cell_start: int = 0):
+    """Apply one grid-level BC (unfused path), dispatched on its type.
+    ``grid_v_out``'s rows are the flat cells from ``cell_start`` on: the
+    whole grid, or a rank's slab of it (parallel/sharded.py; the JAX
+    package's ``apply_grid_bc(..., coords=slab_coords(...),
+    cell_start=)``)."""
+    n = grid_v_out.shape[0]
+    idx, pos = _grid_coords(cfg, grid_v_out.dtype, grid_v_out.device,
+                            cell_start, n)
     if isinstance(col, SurfaceCollider):
         active = (time >= col.start_time) & (time < col.end_time)
         dotp = torch.sum((pos - col.point[None, :]) * col.normal[None, :],
@@ -320,7 +340,7 @@ def apply_grid_bc(cfg: MPMStaticConfig, col, grid_v_out, time: float,
         return torch.stack(cols, dim=-1)
 
     if isinstance(col, GridMaskCollider):
-        masked = col.mask.reshape(-1) >= 1
+        masked = col.mask.reshape(-1)[cell_start:cell_start + n] >= 1
         return torch.where(masked[:, None], 0.0, grid_v_out)
 
     raise TypeError(f"unknown grid BC {type(col)}")

@@ -126,8 +126,8 @@ _SIGNATURES = {
     "launch_cloth_stress": [_P] * 12 + [_I, _P],
     "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P, _P],
     "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
-    "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _F, _I, _I, _I,
-                                         _I, _I, _I, _P, _P],
+    "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _I, _F, _I, _I,
+                                         _I, _I, _I, _I, _P, _P],
     "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],

@@ -19,6 +19,9 @@
 //   surf = per surface: point(3), normal(3), friction, t0, t1
 // surface types 2 bits each in surf_types (STICKY 0, SLIP 1, FRICTIONAL 2).
 // The mesh and mover branches run only when their fields are passed.
+// The launch covers n_cells cells from flat cell cell0 on (the whole grid
+// from 0, or a rank's slab of it): every array is indexed by the cell's
+// row, the coordinates come from its flat index cell0 + row.
 
 #include <cuda_runtime.h>
 
@@ -32,12 +35,13 @@ __global__ void grid_pipeline_kernel(
     const float* __restrict__ mover_v, const float* __restrict__ mover_w,
     const float* __restrict__ gravity, const float* __restrict__ damping_p,
     const float* __restrict__ mesh_friction, const float* __restrict__ surf,
-    float time, float dt, int n_cells,
+    float time, float dt, int cell0, int n_cells,
     int G, float cell_size, int has_mesh, int has_mover, int n_surf,
     int surf_types, int has_bbox, int bbox_pad, float* __restrict__ out) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= n_cells) return;
-  const int gi[3] = {cell / (G * G), (cell / G) % G, cell % G};
+  const int flat = cell0 + cell;
+  const int gi[3] = {flat / (G * G), (flat / G) % G, flat % G};
   const float damping = *damping_p;
 
   const float m = gm[cell];
@@ -117,7 +121,7 @@ extern "C" int launch_grid_pipeline(
     const float* gv, const float* gm, const float* mesh_acc,
     const float* mesh_w, const float* mover_v, const float* mover_w,
     const float* gravity, const float* damping, const float* mesh_friction,
-    const float* surf, float time, float dt, int n_cells, int G,
+    const float* surf, float time, float dt, int cell0, int n_cells, int G,
     float cell_size, int has_mesh, int has_mover, int n_surf,
     int surf_types, int has_bbox, int bbox_pad, float* out, void* stream) {
   const int threads = 256;
@@ -125,7 +129,7 @@ extern "C" int launch_grid_pipeline(
   grid_pipeline_kernel<<<blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       gv, gm, mesh_acc, mesh_w, mover_v, mover_w, gravity, damping,
-      mesh_friction, surf, time, dt, n_cells,
+      mesh_friction, surf, time, dt, cell0, n_cells,
       G, cell_size, has_mesh, has_mover, n_surf, surf_types, has_bbox,
       bbox_pad, out);
   return static_cast<int>(cudaGetLastError());

@@ -2,7 +2,12 @@
 
 normalize + gravity + damping -> body-mesh projection -> mover override
 -> surface BCs (sticky / slip / frictional, within their time window) ->
-bounding-box zeroing, per cell.  ``make_grid_pipeline`` returns a function
+bounding-box zeroing, per cell.  It runs on the whole grid or on a slab of
+it, the contiguous cells from a first flat cell on (a rank's share of the
+grid in parallel/sharded.py, as mpmavatar_tpu/core/stepping.py::
+slab_coords and ``apply_grid_bc(..., cell_start=)`` give JAX's sharded
+substep): positions and the bounding box's indices come from each cell's
+flat index in the whole grid.  ``make_grid_pipeline`` returns a function
 that launches the CUDA kernel of ``csrc/grid_pipeline.cu`` on CUDA
 tensors and runs ``grid_pipeline_plain`` on CPU tensors.  It replaces
 mpmavatar_tpu/ops/pallas_grid_pipeline.py::make_grid_pipeline (kernel
@@ -59,9 +64,10 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
     """Bind the static scene structure; returns
     fn(grid_v_in (N,3), grid_m (N,), mesh_acc (N,6)|None, mesh_w (N,)|None,
     mover_v (N,3)|None, mover_w (N,)|None, gravity (3,), damping,
-    mesh_friction (None without a mesh), time, dt, surf_params) ->
-    grid_v_out (N,3), N = G^3; ``surf_params`` from
-    ``pack_surface_params``.  Under grad, the grid, the mesh and mover
+    mesh_friction (None without a mesh), time, dt, surf_params,
+    cell_start=0) -> grid_v_out (N,3): the N cells from flat cell
+    ``cell_start`` on (N = G^3 from 0: the whole grid); ``surf_params``
+    from ``pack_surface_params``.  Under grad, the grid, the mesh and mover
     fields, gravity, damping, mesh_friction and surf_params are
     differentiable (JAX differentiates its scalar vector, surfaces
     included); time and dt are Python floats."""
@@ -79,11 +85,15 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
     types = sum(t << (2 * i) for i, t in enumerate(surfaces))
 
     def pipeline(grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
-                 gravity, damping, mesh_friction, time, dt, surf_params):
+                 gravity, damping, mesh_friction, time, dt, surf_params,
+                 cell_start: int = 0):
         dev, dtype = grid_v_in.device, grid_v_in.dtype
-        n = G ** 3
+        n = grid_v_in.shape[0]
         if grid_v_in.shape != (n, 3) or grid_m.shape != (n,):
-            raise ValueError("grid pipeline: grid must be (G^3, 3), (G^3,)")
+            raise ValueError("grid pipeline: grid must be (N, 3), (N,)")
+        if not 0 <= cell_start <= G ** 3 - n:
+            raise ValueError(f"grid pipeline: cells [{cell_start}, "
+                             f"{cell_start + n}) outside the {G}^3 grid")
         if has_mesh != (mesh_acc is not None) or \
                 has_mover != (mover_v is not None):
             raise ValueError("grid pipeline: mesh/mover fields do not "
@@ -97,18 +107,19 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
         surf = as_t(surf_params) if surfaces else None
         args = (grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
                 gravity, damping, mesh_friction, surf, float(time),
-                float(dt))
+                float(dt), int(cell_start))
         if not grid_v_in.is_cuda:
             return plain(*args)
         return _autograd.call(launch, plain, *args)
 
     def plain(*args):
+        *args, cell_start = args
         return grid_pipeline_plain(*args, G, cell_size, surfaces, has_bbox,
-                                   bbox_pad)
+                                   bbox_pad, cell_start=cell_start)
 
     def launch(grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
-               gravity, damping, mesh_friction, surf, time, dt):
-        dev, dtype, n = grid_v_in.device, grid_v_in.dtype, G ** 3
+               gravity, damping, mesh_friction, surf, time, dt, cell_start):
+        dev, dtype, n = grid_v_in.device, grid_v_in.dtype, grid_v_in.shape[0]
         ins = [None if t is None else _build.check_cuda(name, t)
                for name, t in (("grid_v_in", grid_v_in), ("grid_m", grid_m),
                                ("mesh_acc", mesh_acc), ("mesh_w", mesh_w),
@@ -119,7 +130,7 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
         out = torch.empty((n, 3), dtype=dtype, device=dev)
         _build.launch(KERNEL, "launch_grid_pipeline",
                       *[_build.ptr(t) for t in ins], time, dt,
-                      n, G, cell_size, int(has_mesh), int(has_mover),
+                      cell_start, n, G, cell_size, int(has_mesh), int(has_mover),
                       len(surfaces), types, int(has_bbox), bbox_pad,
                       out.data_ptr(), _build.stream(dev))
         return out
@@ -130,10 +141,13 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
 def grid_pipeline_plain(grid_v_in, grid_m, mesh_acc, mesh_w, mover_v,
                         mover_w, gravity, damping, mesh_friction, surf,
                         time: float, dt: float, G: int, cell_size: float,
-                        surfaces, has_bbox: bool, bbox_pad: int):
+                        surfaces, has_bbox: bool, bbox_pad: int,
+                        cell_start: int = 0):
     """Plain PyTorch version of the kernel, with its arguments (``surf``
-    as ``pack_surface_params`` gives it)."""
-    cell = torch.arange(G ** 3, device=grid_v_in.device)
+    as ``pack_surface_params`` gives it): the grid's rows are the cells
+    from flat cell ``cell_start`` on."""
+    cell = cell_start + torch.arange(grid_v_in.shape[0],
+                                     device=grid_v_in.device)
     gi = (cell // (G * G), (cell // G) % G, cell % G)
     pos = [g.to(grid_v_in.dtype) * cell_size for g in gi]
 

@@ -829,6 +829,114 @@ def test_grid_pipeline_kernel_matches_plain(dev, mesh_mover):
     assert _rel_err(out, ref) < 1e-5
 
 
+@pytest.mark.parametrize("n_slabs", [2, 4])
+def test_grid_pipeline_kernel_on_slabs_matches_plain(dev, n_slabs):
+    """K5 from a nonzero first cell: each slab against the plain version
+    from the same cell, and the slabs put together against the whole
+    grid's launch, every branch on."""
+    cfg = MPMStaticConfig(n_elements=0, n_traditional=1, n_vertices=0,
+                          n_grid=32)
+    f = lambda *v: torch.tensor(v, device=dev)
+    post = (tcol.SurfaceCollider(f(0.0, 0.313, 0.0), f(0.0, 1.0, 0.0),
+                                 f(0.0), f(0.0), f(1.0), tcol.STICKY),
+            tcol.SurfaceCollider(f(0.0, 0.0, 1.0037), f(0.0, 0.6, 0.8),
+                                 f(0.3), f(0.0), f(1.0), tcol.SLIP),
+            tcol.SurfaceCollider(f(1.0171, 0.0, 0.0), f(0.6, 0.8, 0.0),
+                                 f(0.4), f(0.0), f(1.0), tcol.FRICTIONAL),
+            tcol.BoundingBoxCollider(f(0.0), f(1.0)))
+    n = cfg.n_grid ** 3
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    weight = lambda: torch.where(
+        torch.rand((n,), generator=gen, device=dev) > 0.33,
+        0.5 + torch.rand((n,), generator=gen, device=dev), 0.0)
+    fields = (rnd(n, 3), weight(), rnd(n, 6), weight(), rnd(n, 3), weight())
+    scalars = (f(0.0, -9.8, 0.0), f(0.9), f(0.5))
+    run = gp.make_grid_pipeline(cfg, post, True, True)
+    surf = gp.pack_surface_params(post)
+    whole = run(*fields, *scalars, 0.5, DT, surf)
+    k = n // n_slabs
+    parts = []
+    for r in range(n_slabs):
+        sl = [a[r * k:(r + 1) * k] for a in fields]
+        before = _build.launch_counts().get(gp.KERNEL, 0)
+        out = run(*sl, *scalars, 0.5, DT, surf, cell_start=r * k)
+        assert _build.launch_counts()[gp.KERNEL] == before + 1
+        ref = gp.grid_pipeline_plain(*sl, *scalars, surf, 0.5, DT,
+                                     cfg.n_grid, cfg.dx, (0, 1, 2), True, 3,
+                                     cell_start=r * k)
+        assert _rel_err(out, ref) < 1e-5
+        parts.append(out)
+    assert torch.equal(torch.cat(parts), whole)
+
+
+@pytest.fixture(scope="module")
+def nccl_group():
+    """A one-rank NCCL process group in this process (the card's machine
+    has one card; NCCL refuses two ranks on one device)."""
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs on the card")
+    dist.init_process_group("nccl", init_method="tcp://localhost:"
+                            f"{chip_smoke.free_port()}", rank=0, world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_sharded_frame_over_nccl_matches_the_solver(dev, nccl_group):
+    """The world-1 sharded frame through the kernels (path B's launches
+    per substep) against MPMSolver.frame on the card: the bench scene
+    cut to a 24 x 24 cloth, 500 sand, 48^3, the sphere collider and the
+    joint pins."""
+    from mpmavatar_tpu_torch.parallel import (UniformModel,
+                                              make_sharded_cloth_state,
+                                              make_sharded_frame)
+    solver, state, model, scene = bench_scene.build(48, 500, nx=24,
+                                                    device=dev)
+    cfg = solver.cfg
+    col = solver.colliders.mesh_colliders[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    state = dataclasses.replace(state, v=state.v + 0.1 * torch.randn(
+        state.v.shape, generator=gen, device=dev))
+    frame = make_sharded_frame(
+        cfg, nccl_group, 5, DT, num_joint_v=cfg.num_joint_v,
+        grid_post=solver.colliders.grid_post, with_mesh=True,
+        with_joints=True, num_joint_f=cfg.num_joint_f)
+    um = UniformModel(mu=model.mu[0], lam=model.lam[0], gamma=model.gamma[0],
+                      kappa=model.kappa[0],
+                      friction_coeff=model.friction_coeff,
+                      gravity=model.gravity, mesh_friction=col.friction,
+                      alpha=model.alpha)
+    _build.reset_launch_counts()
+    out = frame(make_sharded_cloth_state(cfg, state, 1), um,
+                scene["mesh_x"][col.faces], scene["mesh_v"][col.faces],
+                scene["joint_verts_v"], scene["joint_faces_v"])
+    assert _build.launch_counts() == {
+        "cloth_stress": 5, "sand_stress": 5, "p2g": 5, "grid_pipeline": 5,
+        "g2p": 5, "splat": 10}
+    ref, _ = solver.frame(state, model, DT, 5, 0.0, **scene)
+    x = torch.cat([out.xe, out.xt, out.xv])
+    v = torch.cat([out.ve, out.vt, out.vv])
+    assert float((x - ref.x).abs().max()) < 2e-5
+    assert float((v - ref.v).abs().max()) < 1e-3
+
+
+def test_collectives_autograd_over_nccl_at_world_1(dev, nccl_group):
+    """At world 1 each collective is the identity forward and backward,
+    on the card, under autograd."""
+    from mpmavatar_tpu_torch.parallel import collectives as C
+    x = torch.randn(6, 3, device=dev, dtype=torch.float64,
+                    requires_grad=True)
+    y = C.all_reduce(C.reduce_scatter(C.all_gather(x, nccl_group) * 2.0,
+                                      nccl_group) ** 2, nccl_group)
+    torch.testing.assert_close(y, (2.0 * x) ** 2)
+    (g,) = torch.autograd.grad(y.sum(), x)
+    torch.testing.assert_close(g, 8.0 * x)
+    assert C.rank(nccl_group) == 0 and C.world_size(nccl_group) == 1
+    torch.testing.assert_close(C.all_max(x, nccl_group), x.detach())
+    torch.testing.assert_close(C.all_mean(x, nccl_group), x)
+
+
 def test_p2g2p_goes_through_every_kernel_and_matches_the_cpu(dev):
     cfg, st, model, rnd = _scene(dev, nx=12, grid=32)
     solver = MPMSolver(cfg, device=dev)

@@ -238,7 +238,34 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      just before and read just after: finite, the synthetic trajectory
      moving by more than 0.01, the loss falling over the steps, each
      parameter's move toward TRUTH or away printed; s per step and
-     peak memory, the trace in the output directory.
+     peak memory, the trace in the output directory;
+ 16. the drivers: train/bench_tracking.py at its defaults (the joint
+     SMPL-X/VPoser fit: a 40,612-face mesh at 1500 x 1000, the
+     10,475-vertex, 22-joint rig with VPoser decoding its body pose from
+     the trainable latent, the cloth-body collision penalty, both Adams):
+     BENCH_TRACK_ITERS iterations after 2 on the tile path (the JAX
+     bench's: no kernel launches), then on the worklist compositor with
+     the launch counters reset just before and read just after (K6 and K7
+     twice per iteration, nothing else), ms per iteration, steps/s and the
+     projected minutes per 3,000-iteration frame, the loss finite, no
+     overflow, peak memory; K6 and K7 against their plain versions on one
+     more iteration's own worklists and cotangents; a profile of one more
+     iteration on each path (device busy and idle, kernels) and the
+     collision penalty's device ms; one joint iteration's gradient w.r.t. the
+     vertices, colours, VPoser latent and SMPL-X translation at a cut
+     shape on the card against the CPU plain path, beside the SMPL-X
+     geometry detached; then ``python -m mpmavatar_tpu_torch.bench
+     --headline_only`` in this process, its last line parsed and its
+     headline, 200^3, 250^3 + sand and render values finite and
+     positive;
+ 17. the stage-level checks with the kernels on: tests/test_convergence.py's
+     tracking scene (a 9 x 9 cloth toward a bumped target from 3 views,
+     250 iterations through K6/K7) must cut the loss below half its
+     first and the vertex error below 0.4 of its start, and its stage-2
+     scene (the fake tracking assets' avatar, 120 steps through K6/K7)
+     must raise the held-out PSNR by more than 3 dB; the launch counters
+     reset before and read after each (K6 and K7 twice per iteration or
+     step).
 The last lines are the card's name and power limit, one JSON object
 with every kernel's numbers, and the JSON status line.
 """
@@ -494,6 +521,42 @@ DP_SAMPLES, DP_STEPS = 2, 5
 # --recover at full width (158^2 hanging cloth: 24,964 vertices, 49,298
 # faces, 74,262 particles; 200^3; 1 x 400 substeps), REC_STEPS steps
 REC_NX, REC_GRID, REC_SUBSTEP, REC_STEPS = 158, 200, 400, 2
+# the drivers (phase 16): train/bench_tracking.py at its defaults (the
+# 144 x 142 mesh, 40,612 faces, 1500 x 1000, the 10,475-vertex rig with
+# VPoser in the graph): 2 warm-up iterations, then BENCH_TRACK_ITERS on
+# the tile path (the JAX bench's; no kernel) and on the worklist
+# compositor (BENCH_TRACK_WORK_CAP; K6 and K7 twice per iteration); one
+# joint iteration's gradient w.r.t. BENCH_TRACK_LEAVES (the SMPL-X
+# translation taken as a leaf for the check) at BENCH_TRACK_CUT on the
+# card against the CPU plain path, per leaf at TRACK_GRAD_TOL of its
+# largest entry, beside the SMPL-X geometry detached (the latent's and the
+# translation's gradients then vanish); the collision loss's device ms;
+# a profile of one tile-path iteration; then mpmavatar_tpu_torch.bench
+# --headline_only in this process, whose BENCH_KEYS must be finite and
+# positive
+BENCH_TRACK_ITERS, BENCH_TRACK_WORK_CAP = 10, 8192
+BENCH_TRACK_FACES = 40612
+# the cut keeps f = 1400 and so the splats' footprint at a mesh near the
+# bench's (a 48 x 46 mesh's splats span more than the rasterizer's 36
+# tiles per gaussian at f = 1400, and overflow); its 1,655 phase-2 items
+# fit the cut worklist (a CPU run)
+BENCH_TRACK_CUT = dict(n_theta=96, n_phi=94, width=480, height=320)
+BENCH_TRACK_CUT_CAP = 2048
+BENCH_TRACK_LEAVES = ("vertices", "rgb_colors", "latent", "trans")
+BENCH_KEYS = ("value", "grid200_substeps_per_sec",
+              "grid250_100k_sand_substeps_per_sec", "render_fps_1080p_50k")
+# the stage-level checks (phase 17), tests/test_convergence.py's scenes
+# and bounds with the kernels on (tests/test_torch_stages.py runs the same
+# functions on the CPU with the JAX test files' own builders): tracking
+# over STAGE_TRACK_ITERS iterations must cut the loss below
+# STAGE_LOSS_RATIO of its first and the mean vertex error below
+# STAGE_ERR_RATIO of its start; STAGE_PSNR_ITERS stage-2 steps must raise
+# the held-out PSNR by more than STAGE_PSNR_GAIN dB.  The 80 x 80 views
+# have 25 tiles: phase 2 holds at most 25 x 7 items (tracking,
+# tile_capacity 256) and 25 x 3 (stage 2, 128), under STAGE_WORK_CAP
+STAGE_TRACK_ITERS, STAGE_LOSS_RATIO, STAGE_ERR_RATIO = 250, 0.5, 0.4
+STAGE_PSNR_ITERS, STAGE_PSNR_GAIN = 120, 3.0
+STAGE_WORK_CAP = 256
 
 REPO = Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out"
@@ -1185,6 +1248,23 @@ def composite_bwd_check(check, label, packed, ids, pix, g, nc,
                  "tied_items": int(tied.sum()),
                  "rows_held": held, "rerun_rel": rerun,
                  **kcomp.kernel_info(C, nc)[kcomp.KERNEL_BWD]})
+
+
+def composite_pair(check, label, run, launches_of):
+    """K6 and K7 against their plain versions on the worklists and
+    cotangents of one more differentiated ``run`` (its two compositing
+    phases), through ``check``."""
+    calls = composite_calls(run)
+    if len(calls) != 2 or any(len(c) != 4 for c in calls):
+        raise AssertionError(f"{label}: {len(calls)} compositor calls, not "
+                             f"the two phases with their cotangents")
+    for phase, (packed, ids, pix0, g) in zip((1, 2), calls):
+        nc = packed.shape[1] - 6
+        composite_check(check, f"composite ({label} phase {phase})", packed,
+                        ids, pix0, nc, launches_of)
+        composite_bwd_check(check, f"composite_bwd ({label} phase "
+                            f"{phase})", packed, ids, pix0, g, nc,
+                            launches_of)
 
 
 def render_path(dev, check) -> dict:
@@ -3210,12 +3290,8 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
                              "limit does not separate the wrong path")
 
     # K6 and K7 on one more iteration's own worklists and cotangents
-    calls = composite_calls(lambda: tracker.step(batch, None, None, False))
-    for phase, (packed, ids, pix0, g) in zip((1, 2), calls):
-        composite_check(check, f"composite (tracking phase {phase})",
-                        packed, ids, pix0, 3, launches)
-        composite_bwd_check(check, f"composite_bwd (tracking phase "
-                            f"{phase})", packed, ids, pix0, g, 3, launches)
+    composite_pair(check, "tracking",
+                   lambda: tracker.step(batch, None, None, False), launches)
 
     # a profile of one more iteration
     busy_s, prof_wall, rows = profile_device(
@@ -3730,6 +3806,498 @@ def recovery_path(dev, per_sub) -> tuple:
         raise AssertionError("recovery: not the full width, or the loss did "
                              "not fall")
     return statistics.median(r["sec"] for r in steps), launches
+
+
+def joint_grads(tracker, batch, detach_body: bool = False):
+    """One joint tracking iteration's gradient w.r.t. BENCH_TRACK_LEAVES:
+    the mesh vertices, the colours, the VPoser latent and the SMPL-X
+    translation (a leaf here only; the tracker holds it fixed).  With
+    ``detach_body`` the SMPL-X geometry leaves the graph (a wrong path:
+    the latent's and the translation's gradients vanish)."""
+    import torch
+    from mpmavatar_tpu_torch.train import tracking as tt
+    fixed = dict(tracker.smplx_fixed)
+    fixed["trans"] = fixed["trans"].detach().clone().requires_grad_(True)
+    body_v, body_vn = tracker._smplx_geometry(tracker.smplx_train, fixed)
+    if detach_body:
+        body_v, body_vn = body_v.detach(), body_vn.detach()
+    loss, _ = tt.tracking_loss(
+        tracker.params, tracker.variables, batch["ca"], batch["w"],
+        batch["h"], batch["cam_id"], batch["rgb"], batch["msk"], body_v,
+        body_vn, tracker.prev_col, True, tracker.cfg, stats=tracker.stats)
+    leaves = [tracker.params["vertices"], tracker.params["rgb_colors"],
+              tracker.smplx_train["latent"], fixed["trans"]]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(grads, leaves)]
+
+
+def busy_share(label, busy_ms, timed_ms) -> None:
+    """Print a profiled iteration's device busy time against a timed
+    iteration's wall, unclamped; flag a busy time above the wall (the two
+    are different iterations, so a share over 1 is their spread or a
+    mismatched window, never an idle share)."""
+    share = busy_ms / timed_ms
+    print(f"  {label}: busy {busy_ms:.4f} ms against the timed iteration's "
+          f"{timed_ms:.4f} ms: busy share {share:.4f}, idle share "
+          f"{1 - share:.4f}")
+    if share > 1:
+        print(f"  FLAG {label}: the profiled iteration's device busy time "
+              f"exceeds the timed iteration's wall by {busy_ms - timed_ms:.4f}"
+              f" ms; no idle share is read from this pair")
+
+
+def driver_launches(per_sub_a, per_sub_b) -> dict:
+    """The launches of ``bench --headline_only``: the garment at 128^3 and
+    200^3 (path A's kernels per substep) and at 250^3 with sand (path
+    B's), 2 + 5 frames of 100 substeps each, and the two 1080p splat
+    scenes' 1 + 10 frames, K6 twice per frame."""
+    from mpmavatar_tpu_torch import bench
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.sim import bench_scene
+    n_sub = (bench_scene.WARM_FRAMES + bench_scene.TIMED_FRAMES) \
+        * bench.FULL["sim"]["substeps"]
+    want = {}
+    for per in (per_sub_a, per_sub_a, per_sub_b):
+        for k, v in per.items():
+            want[k] = want.get(k, 0) + v * n_sub
+    want[kcomp.KERNEL] = 2 * 2 * (1 + bench.FULL["render"]["frames"])
+    return want
+
+
+def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
+    """Phase 16: the tracking bench (tile path, then the worklist
+    compositor with its launches, K6/K7 checks, profile and gradient
+    check) and the one-line driver with its launches; ``check`` is phase
+    4's kernel check, ``per_sub_a``/``per_sub_b`` paths A's and B's
+    launches per substep.  Returns (tile-path ms per iteration, worklist
+    ms per iteration, the worklist run's launches, the driver's
+    launches)."""
+    import contextlib
+    import io
+    import math
+    import torch
+    from mpmavatar_tpu_torch import bench
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    from mpmavatar_tpu_torch.train import bench_tracking as BT
+    from mpmavatar_tpu_torch.utils.losses import collision_loss
+
+    t_phase = time.perf_counter()
+    # the JAX bench's tile path: plain tensor code, no kernel
+    _build.reset_launch_counts()
+    tile = BT.run(iters=BENCH_TRACK_ITERS, device=dev)
+    tile_launches = _build.launch_counts()
+    print(f"tracking bench, tile path (train/bench_tracking.py): "
+          f"{tile['n_faces']} faces at 1500x1000, the 10,475-vertex rig and "
+          f"VPoser in the graph, {BENCH_TRACK_ITERS} iterations after "
+          f"{BT.WARMUP}: {tile['ms_per_iter']:.4f} ms per iteration, "
+          f"{tile['value']:.4f} steps/s, projected "
+          f"{tile['projected_min_per_frame_3k_iters']:.3f} min per "
+          f"3,000-iteration frame and "
+          f"{tile['projected_t0_hours_10k_iters']:.4f} h for the first "
+          f"frame's 10,000; loss {tile['loss']:.6f}; peak allocated "
+          f"{tile['peak_allocated_bytes'] / 2 ** 30:.3f} GiB; overflow "
+          f"work {tile['work_overflow']}, big {tile['big_overflow']}; "
+          f"launches {tile_launches}")
+    if tile["n_faces"] != BENCH_TRACK_FACES or tile_launches or not \
+            math.isfinite(tile["loss"]) or tile["big_overflow"]:
+        raise AssertionError("tracking bench, tile path: not the bench's "
+                             "mesh, a kernel launched, a non-finite loss "
+                             "or overflow")
+
+    # the worklist compositor: K6 and K7 twice per iteration, the
+    # counters reset after the warm-up
+    tracker, batches, n_faces = BT.build_tracking_problem(
+        device=dev, work_cap=BENCH_TRACK_WORK_CAP)
+    work = BT.timed(tracker, batches, n_faces, BENCH_TRACK_ITERS,
+                    after_warmup=_build.reset_launch_counts)
+    launches = _build.launch_counts()
+    work_ms = work["ms_per_iter"]
+    want = {kcomp.KERNEL: 2 * BENCH_TRACK_ITERS,
+            kcomp.KERNEL_BWD: 2 * BENCH_TRACK_ITERS}
+    stats = {k: int(v) for k, v in tracker.stats.items()}
+    print(f"tracking bench, worklist compositor (--work_cap "
+          f"{BENCH_TRACK_WORK_CAP}): {work_ms:.4f} ms per iteration, "
+          f"{work['value']:.4f} steps/s "
+          f"({work['projected_min_per_frame_3k_iters']:.3f} min per "
+          f"3,000-iteration frame); loss {work['loss']:.6f}; the last "
+          f"step's {stats}; peak allocated "
+          f"{work['peak_allocated_bytes'] / 2 ** 30:.3f} GiB; launches "
+          f"{launches}")
+    if launches != want or stats["work_overflow"] or stats["big_overflow"]:
+        raise AssertionError(f"tracking bench, worklist: launches "
+                             f"{launches}, expected {want}, or overflow")
+
+    # K6 and K7 on one more iteration's own worklists and cotangents
+    batch = tracker._device_batches(batches)[0]
+    composite_pair(check, "tracking bench",
+                   lambda: tracker.step(batch, None, None, True), launches)
+
+    # a profile of one more iteration, and the collision penalty alone
+    busy_s, prof_wall, rows = profile_device(
+        lambda: tracker.step(batch, None, None, True))
+    (OUT / "chip_smoke_profile_tracking_bench.txt").write_text("\n".join(
+        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
+    cloth = tracker.params["vertices"].detach()[
+        tracker.variables["cloth_v_idx"]].requires_grad_(True)
+    body_v, body_vn = (t.detach() for t in tracker._smplx_geometry(
+        tracker.smplx_train, tracker.smplx_fixed))
+    body_v.requires_grad_(True)
+    coll_fwd = event_ms(lambda: collision_loss(cloth, body_v, body_vn),
+                        reps=3, inner=5)
+    coll_ms = event_ms(lambda: torch.autograd.grad(
+        collision_loss(cloth, body_v, body_vn), [cloth, body_v]), reps=3,
+        inner=5)
+    if rows:
+        print(f"tracking bench profile of one worklist iteration: device "
+              f"busy {1e3 * busy_s:.4f} ms in {sum(r[2] for r in rows)} "
+              f"kernels, {1e3 * prof_wall:.4f} ms profiled wall")
+        busy_share("worklist iteration", 1e3 * busy_s, work_ms)
+        for key, us, n in rows[:8]:
+            print(f"  {us:10.2f} us {n:4d}x  {key[:90]}")
+    else:
+        print("tracking bench profile: no device time recorded; busy share "
+              "not measured")
+    print(f"tracking bench collision penalty ({cloth.shape[0]} cloth x "
+          f"{body_v.shape[0]} body vertices, the full distance matrix "
+          f"{4 * cloth.shape[0] * body_v.shape[0] / 2 ** 20:.1f} MiB): "
+          f"forward {coll_fwd:.4f} ms, forward + backward {coll_ms:.4f} ms "
+          f"(CUDA events)")
+
+    # a profile of one tile-path iteration (after the worklist's timing:
+    # the profiler slows the host's launches for the rest of the process)
+    tracker, batches, _ = BT.build_tracking_problem(device=dev)
+    batch = tracker._device_batches(batches)[0]
+    tracker.step(batch, None, None, True)
+    busy_s, prof_wall, rows = profile_device(
+        lambda: tracker.step(batch, None, None, True))
+    (OUT / "chip_smoke_profile_tracking_bench_tile.txt").write_text(
+        "\n".join(f"{us:12.1f} us {n:6d}x  {key}" for key, us, n in rows)
+        + "\n")
+    del tracker, batches, batch
+    if rows:
+        print(f"tracking bench profile of one tile-path iteration: device "
+              f"busy {1e3 * busy_s:.4f} ms in {sum(r[2] for r in rows)} "
+              f"kernels, {1e3 * prof_wall:.4f} ms profiled wall")
+        busy_share("tile-path iteration", 1e3 * busy_s, tile["ms_per_iter"])
+        for key, us, n in rows[:8]:
+            print(f"  {us:10.2f} us {n:4d}x  {key[:90]}")
+    else:
+        print("tracking bench tile-path profile: no device time recorded")
+
+    # one joint iteration's gradient at a cut shape: the card against the
+    # CPU plain path, beside the SMPL-X geometry detached
+    def cut_grads(device, detach_body=False):
+        tr, bt, _ = BT.build_tracking_problem(
+            device=device, work_cap=BENCH_TRACK_CUT_CAP, **BENCH_TRACK_CUT)
+        grads = joint_grads(tr, tr._device_batches(bt)[0], detach_body)
+        if int(tr.stats["work_overflow"]) or int(tr.stats["big_overflow"]):
+            raise AssertionError(f"tracking bench, cut shape on {device}: "
+                                 f"the rasterizer overflowed")
+        return [g.cpu() for g in grads]
+
+    g_card, g_cpu = cut_grads(dev), cut_grads("cpu")
+    g_wrong = cut_grads(dev, detach_body=True)
+    per_leaf = lambda gs: {
+        k: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        for k, a, b in zip(BENCH_TRACK_LEAVES, gs, g_cpu)}
+    sound, wrong = per_leaf(g_card), per_leaf(g_wrong)
+    print(f"tracking bench gradient of one joint iteration at "
+          f"{BENCH_TRACK_CUT} (work_cap {BENCH_TRACK_CUT_CAP}), the card "
+          f"against the CPU plain path per leaf relative to its largest "
+          f"entry: " + ", ".join(f"{k} {v:.3e}" for k, v in sound.items())
+          + f" (tol {TRACK_GRAD_TOL:.0e}); the SMPL-X geometry detached: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in wrong.items()))
+    if not max(sound.values()) <= TRACK_GRAD_TOL < max(wrong.values()):
+        raise AssertionError("tracking bench: the joint gradient on the "
+                             "card disagrees with the CPU's, or the limit "
+                             "does not separate the wrong path")
+
+    # the one-line driver, in this process, with the counters reset just
+    # before and read just after
+    text = io.StringIO()
+    _build.reset_launch_counts()
+    with contextlib.redirect_stdout(text):
+        bench.main(["--headline_only"])
+    drv_launches = _build.launch_counts()
+    out = text.getvalue().strip().splitlines()
+    line = json.loads(out[-1])
+    want = driver_launches(per_sub_a, per_sub_b)
+    print(f"mpmavatar_tpu_torch.bench --headline_only: {out[-1]}; launches "
+          f"{drv_launches}")
+    if drv_launches != want:
+        raise AssertionError(f"bench --headline_only: launches "
+                             f"{drv_launches}, expected {want}")
+    bad = [k for k in BENCH_KEYS
+           if not (math.isfinite(line.get(k, math.nan)) and line[k] > 0)]
+    if bad or line["metric"] != bench.METRIC:
+        raise AssertionError(f"bench --headline_only: keys {bad} missing, "
+                             f"not finite or not positive")
+    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return tile["ms_per_iter"], work_ms, launches, drv_launches
+
+
+def stage_cloth(nx=5, ny=5, y0=1.0, extent=0.4):
+    """tests/test_substep_golden.py::make_cloth (the JAX suite's cloth),
+    without JAX."""
+    import numpy as np
+    xs = np.linspace(1.0 - extent / 2, 1.0 + extent / 2, nx)
+    zs = np.linspace(1.0 - extent / 2, 1.0 + extent / 2, ny)
+    verts = np.stack(np.meshgrid(xs, zs, indexing="ij"), -1).reshape(-1, 2)
+    verts = np.stack([verts[:, 0], np.full(len(verts), y0), verts[:, 1]], -1)
+    faces = []
+    for i in range(nx - 1):
+        for j in range(ny - 1):
+            a = i * ny + j
+            faces += [[a, a + 1, a + ny], [a + 1, a + ny + 1, a + ny]]
+    return verts.astype(np.float64), np.asarray(faces, np.int32)
+
+
+def lookat_cams(eyes, target=(0.0, 0.0, 0.0), w=80, h=80, f=160.0):
+    """tests/test_convergence.py::_lookat_cams with the port's Camera:
+    OpenCV-convention cameras at ``eyes`` looking at ``target``."""
+    import numpy as np
+    from mpmavatar_tpu_torch.render.cameras import Camera
+    k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
+    tgt = np.asarray(target, np.float64)
+    cams = []
+    for i, eye in enumerate(eyes):
+        eye = np.asarray(eye, np.float64)
+        z = (tgt - eye) / np.linalg.norm(tgt - eye)
+        x = np.cross(z, [0.0, 1.0, 0.0])
+        x = x / np.linalg.norm(x)
+        c2w = np.eye(4)
+        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = \
+            x, np.cross(z, x), z, eye
+        cams.append(Camera.from_kw2c(f"cam{i}", w, h, k,
+                                     np.linalg.inv(c2w)))
+    return cams
+
+
+def fake_tracking_assets(path, n_frames=2, nx=5, ny=5):
+    """tests/test_train.py::make_fake_tracking_assets without JAX: the
+    tracking stage's params_*.npz, AO maps and UV obj under ``path``."""
+    import numpy as np
+    from PIL import Image
+    verts, faces = stage_cloth(nx=nx, ny=ny, y0=1.0, extent=0.5)
+    (path / "aomap").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    for t in range(n_frames):
+        np.savez(path / f"params_{t}.npz", vertices=verts + 0.01 * t,
+                 faces=faces,
+                 rgb_colors=rng.random((len(faces), 3)).astype(np.float32),
+                 cam_m=np.zeros((4, 3), np.float32),
+                 cam_c=np.zeros((4, 3), np.float32))
+        Image.fromarray((rng.random((64, 64)) * 255).astype(np.uint8)).save(
+            path / "aomap" / f"mesh_cloth_{t}.png")
+    with open(path / "uv.obj", "w") as f:
+        for v in verts:
+            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+        for i in range(len(verts)):
+            f.write(f"vt {rng.random():.4f} {rng.random():.4f}\n")
+        for fc in faces:
+            f.write(f"f {fc[0]+1}/{fc[0]+1} {fc[1]+1}/{fc[1]+1} "
+                    f"{fc[2]+1}/{fc[2]+1}\n")
+    return verts, faces
+
+
+def converge_tracking(make_cloth, lookat, device, work_cap=0) -> tuple:
+    """tests/test_convergence.py::test_tracking_converges_to_target_mesh
+    on the port: a 9 x 9 cloth tracked toward a bumped and shifted target
+    seen by 3 views (the GT rendered through the tile path), 250
+    iterations from the true colours; ``make_cloth`` and ``lookat`` build
+    the scene (the JAX suite's or their copies).  Returns (losses, the
+    mean vertex error before, after, a function that runs one more
+    iteration on the first view)."""
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.render import camera_arrays, rasterize
+    from mpmavatar_tpu_torch.render.geometry import \
+        covariance_from_scaling_rotation
+    from mpmavatar_tpu_torch.train import tracking as tt
+    verts, faces = make_cloth(nx=9, ny=9, y0=0.0, extent=0.7)
+    verts = (verts - np.array([1.0, 0.0, 1.0])).astype(np.float32)
+    tgt = verts.copy()
+    tgt[:, 1] += 0.10 * np.sin(np.pi * (tgt[:, 0] + 0.35) / 0.7) \
+        * np.sin(np.pi * (tgt[:, 2] + 0.35) / 0.7)
+    tgt[:, 0] += 0.04
+    colors = np.random.default_rng(0).random((len(faces), 3)).astype(
+        np.float32)
+    cams = lookat([(1.2, 1.5, 0.3), (-0.9, 1.6, 0.9), (0.2, 1.8, -1.1)])
+    gt = tt.init_tracking_params(tgt, faces, max_cams=len(cams),
+                                 device=device)
+    gt["rgb_colors"] = torch.as_tensor(colors, device=device)
+    rv = tt.params2rendervar(gt, torch.as_tensor(faces.astype(np.int64),
+                                                 device=device))
+    cov3d = covariance_from_scaling_rotation(rv["scales"], 1.0,
+                                             rv["rotations"])
+    batches = []
+    for i, cam in enumerate(cams):
+        out = rasterize(rv["means3d"], rv["colors"], rv["opacities"], cov3d,
+                        camera_arrays(cam, device),
+                        torch.zeros(3, device=device),
+                        width=cam.image_width, height=cam.image_height,
+                        tile_capacity=128)
+        if not float(out["alpha"].sum()) > 200:
+            raise AssertionError(f"camera {i} does not see the cloth")
+        batches.append({"cam": cam, "camera_idx": i,
+                        "rgb": out["render"].cpu().numpy(),
+                        "msk": out["alpha"].cpu().numpy()})
+    cfg = tt.TrackingConfig(iters_first=STAGE_TRACK_ITERS, tile_capacity=256,
+                            collision_weight=0.0, work_cap=work_cap)
+    tracker = tt.MeshTracker(verts, faces, cfg, max_cams=len(cams),
+                             scene_radius=4.0, device=device)
+    with torch.no_grad():
+        tracker.params["rgb_colors"].copy_(torch.as_tensor(colors))
+    body_v = np.full((8, 3), 5.0, np.float32)       # a far-away body
+    body_vn = np.zeros((8, 3), np.float32)
+    body_vn[:, 1] = 1.0
+    err0 = float(np.linalg.norm(verts - tgt, axis=1).mean())
+    losses = tracker.fit_frame(batches, body_v, body_vn, is_initial=True)
+    fitted = tracker.params["vertices"].detach().cpu().numpy()
+    first = tracker._device_batches(batches)[0]
+    body = [torch.as_tensor(a, device=device) for a in (body_v, body_vn)]
+    return (losses, err0,
+            float(np.linalg.norm(fitted - tgt, axis=1).mean()),
+            lambda: tracker.step(first, *body, True))
+
+
+def heldout_psnr(asset_dir, lookat, device, work_cap=0) -> tuple:
+    """tests/test_convergence.py::test_appearance_psnr_rises_on_heldout_view
+    on the port: the avatar of the tracking assets in ``asset_dir`` (the
+    JAX suite's make_fake_tracking_assets or its copy), opacity and scale
+    boosted, trained for 120 steps toward a second colour assignment seen
+    from 3 views (GT and held-out renders through the tile path, the
+    steps through the worklist compositor when ``work_cap`` > 0).
+    Returns (held-out PSNR before, after, the last loss, a function that
+    runs one more step on the first view)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from mpmavatar_tpu_torch.data import OptimizationParams
+    from mpmavatar_tpu_torch.render import camera_arrays
+    from mpmavatar_tpu_torch.render.avatar_model import load_mesh_avatar
+    from mpmavatar_tpu_torch.train.appearance import (make_optimizer,
+                                                      make_train_step,
+                                                      render_avatar_frame)
+    avatar, params = load_mesh_avatar(str(asset_dir),
+                                      str(asset_dir / "uv.obj"),
+                                      sh_degree=1, capacity_factor=1.0,
+                                      device=device)
+    avatar = dataclasses.replace(
+        avatar, verts_orig=avatar.verts_orig - np.array([1.0, 1.0, 1.0]),
+        _on_device={})
+    # the fresh avatar is nearly transparent at this scale: both sides
+    # boosted, as the JAX test does
+    with torch.no_grad():
+        params.splats.opacity.fill_(3.0)
+        params.splats.scaling.add_(np.log(6.0))
+    tgt_dc = np.random.default_rng(1).random(
+        tuple(params.splats.features_dc.shape)).astype(np.float32)
+    tgt = dataclasses.replace(params, splats=dataclasses.replace(
+        params.splats, features_dc=torch.as_tensor(tgt_dc, device=device)))
+    cams = lookat([(0.6, 0.85, 0.25), (-0.5, 0.9, 0.45), (0.2, 1.0, -0.55),
+                   (0.55, 0.8, -0.35)], w=80, h=80, f=150.0)
+    ao = avatar.tensor("ao_maps", device)[0]
+    bg = torch.zeros(3, device=device)
+
+    @torch.no_grad()
+    def render(p, cam):
+        return render_avatar_frame(avatar, p, avatar.select_verts(p, 0), ao,
+                                   cam, 0, 0, bg, False, tile_capacity=128)
+
+    views = []
+    for i, cam in enumerate(cams):
+        img, out = render(tgt, cam)
+        if not float(out["alpha"].sum()) > 200:
+            raise AssertionError(f"camera {i} does not see the avatar")
+        views.append((cam, img, out["alpha"]))
+    train_views, held = views[:3], views[3]
+
+    def psnr(p):
+        img, _ = render(p, held[0])
+        mse = float(torch.mean((torch.clamp(img, 0, 1) - held[1]) ** 2))
+        return -10.0 * np.log10(max(mse, 1e-10))
+
+    opt = OptimizationParams()
+    step = make_train_step(avatar, opt, make_optimizer(opt, 1.0, params), 0,
+                           False, tile_capacity=128, work_cap=work_cap)
+    def train(it):
+        cam, gt, msk = train_views[it % 3]
+        return step(params, 0, it % 3, camera_arrays(cam, device), gt, msk,
+                    ao, cam.image_width, cam.image_height)
+
+    psnr0 = psnr(params)
+    for it in range(STAGE_PSNR_ITERS):
+        loss, _ = train(it)
+    return psnr0, psnr(params), float(loss), lambda: train(0)
+
+
+def stages_path(dev, smi, check) -> dict:
+    """Phase 17: the two convergence checks on the card, through K6/K7,
+    and K6/K7 against their plain versions on one more iteration's and
+    one more step's own worklists and cotangents; ``check`` is phase 4's
+    kernel check.  Returns the checks' launches."""
+    import math
+    import shutil
+    from mpmavatar_tpu_torch.ops import _build
+    from mpmavatar_tpu_torch.ops import composite as kcomp
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses, err0, err1, track_more = converge_tracking(
+        stage_cloth, lookat_cams, dev, STAGE_WORK_CAP)
+    track_s = time.perf_counter() - t0
+    launches_t = _build.launch_counts()
+    print(f"stage check, tracking converges (tests/test_convergence.py's "
+          f"scene, {STAGE_TRACK_ITERS} iterations, work_cap "
+          f"{STAGE_WORK_CAP}): loss {losses[0]:.6f} -> {losses[-1]:.6f} "
+          f"({losses[-1] / losses[0]:.4f} of the first, bound "
+          f"{STAGE_LOSS_RATIO}), mean vertex error {err0:.6f} -> {err1:.6f} "
+          f"({err1 / err0:.4f}, bound {STAGE_ERR_RATIO}); {track_s:.2f} s; "
+          f"launches {launches_t}")
+    want = {kcomp.KERNEL: 2 * STAGE_TRACK_ITERS,
+            kcomp.KERNEL_BWD: 2 * STAGE_TRACK_ITERS}
+    if launches_t != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"stage check, tracking: launches "
+                             f"{launches_t}, expected {want}, or a "
+                             f"non-finite loss")
+    if not (losses[-1] < STAGE_LOSS_RATIO * losses[0]
+            and err1 < STAGE_ERR_RATIO * err0):
+        raise AssertionError("stage check: tracking does not converge to "
+                             "the target mesh")
+    composite_pair(check, "stage tracking", track_more, launches_t)
+
+    work = REPO / "output" / "chip_smoke_stages"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        fake_tracking_assets(work)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        psnr0, psnr1, loss, app_more = heldout_psnr(work, lookat_cams, dev,
+                                                    STAGE_WORK_CAP)
+        app_s = time.perf_counter() - t0
+        launches_a = _build.launch_counts()
+        composite_pair(check, "stage-2", app_more, launches_a)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"stage check, held-out PSNR rises (tests/test_convergence.py's "
+          f"scene, {STAGE_PSNR_ITERS} stage-2 steps, work_cap "
+          f"{STAGE_WORK_CAP}): {psnr0:.4f} -> {psnr1:.4f} dB (+"
+          f"{psnr1 - psnr0:.4f}, bound +{STAGE_PSNR_GAIN}); last loss "
+          f"{loss:.6f}; {app_s:.2f} s; launches {launches_a}")
+    want = {kcomp.KERNEL: 2 * STAGE_PSNR_ITERS,
+            kcomp.KERNEL_BWD: 2 * STAGE_PSNR_ITERS}
+    if launches_a != want or not math.isfinite(loss):
+        raise AssertionError(f"stage check, stage 2: launches {launches_a}, "
+                             f"expected {want}, or a non-finite loss")
+    if not psnr1 > psnr0 + STAGE_PSNR_GAIN:
+        raise AssertionError("stage check: stage 2 does not raise the "
+                             "held-out PSNR")
+    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {k: launches_t.get(k, 0) + launches_a.get(k, 0)
+            for k in set(launches_t) | set(launches_a)}
 
 
 def main() -> int:
@@ -4421,6 +4989,13 @@ def main() -> int:
     # ---- 15. the production recovery ------------------------------------
     rec_s, rec_launches = recovery_path(dev, per_sub_a)
 
+    # ---- 16. the drivers: the tracking bench, the one-line bench --------
+    bench_tile_ms, bench_work_ms, bench_launches, drv_launches = \
+        drivers_path(dev, smi, check, per_sub_a, per_sub_b)
+
+    # ---- 17. the stage-level convergence checks -------------------------
+    stage_launches = stages_path(dev, smi, check)
+
     print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
           f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
           f"ms/substep; render "
@@ -4431,7 +5006,9 @@ def main() -> int:
           f"tracking {track_ms:.4f} ms/iteration; sharded frame "
           f"{md['sharded_frame'][0]:.4f} ms/substep, sharded material step "
           f"{md['sharded_material_step'][0]:.4f} ms, DP stage-2 step "
-          f"{md['dp_step'][0]:.4f} ms; recovery {rec_s:.2f} s/step on {smi}; "
+          f"{md['dp_step'][0]:.4f} ms; recovery {rec_s:.2f} s/step; "
+          f"tracking bench {bench_tile_ms:.4f} (tile path), "
+          f"{bench_work_ms:.4f} (worklist) ms/iteration on {smi}; "
           f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
     for entry in results.values():
@@ -4449,7 +5026,10 @@ def main() -> int:
             "tracking": track_launches.get(entry["name"], 0),
             **{path: counts.get(entry["name"], 0)
                for path, (_, counts) in md.items()},
-            "recover": rec_launches.get(entry["name"], 0)}
+            "recover": rec_launches.get(entry["name"], 0),
+            "tracking_bench": bench_launches.get(entry["name"], 0),
+            "driver": drv_launches.get(entry["name"], 0),
+            "stages": stage_launches.get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ Scenes, all made from seeds:
 Runs on the CUDA device unless ``--device cpu``; ``--width``/``--height``
 cut the image (the focal length scales with the width) and ``--mesh`` /
 ``--splats`` the scene.  Fails when the worklist or the footprint pools
-overflow, as the JAX benches assert.
+overflow, as the JAX benches assert.  ``main`` prints one JSON line and
+returns it as a dict.
 """
 
 from __future__ import annotations
@@ -234,14 +235,16 @@ def main(argv=None):
         check_overflow(out, args.scene)
     if not bool(torch.isfinite(image).all()):
         raise RuntimeError(f"{args.scene}: non-finite pixels")
-    print(json.dumps({
+    result = {
         **info, "device": str(device), "frames": args.frames,
         "frame_ms": [round(1e3 * s, 3) for s in times],
         "tiles": int(out["tile_counts"].numel()),
         "instances": int(out["tile_counts"].sum()),
         "n_items": int(out["n_items"]),
         "image_mean": float(image.mean()),
-        "alpha_mean": float(out["alpha"].mean())}))
+        "alpha_mean": float(out["alpha"].mean())}
+    print(json.dumps(result))
+    return result
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ with zero joint velocities, dt = 1e-4.  ``--sand N`` adds N sand particles
 drawn from ``np.random.default_rng(0)``, as the bench's 250^3 demo shape
 does with N = 100,000.  Runs on the CUDA device through the port's
 kernels; ``--device cpu`` runs the plain PyTorch path instead.
+``substeps_per_sec`` times the scene as the JAX bench does (the
+``mpmavatar_tpu_torch.bench`` driver's rates); the CLI logs each frame.
 
     python -m mpmavatar_tpu_torch.sim.bench_scene --grid 128
     python -m mpmavatar_tpu_torch.sim.bench_scene --grid 250 --sand 100000
@@ -30,6 +32,8 @@ from ..core.types import (MPMStaticConfig, build_body_sphere, build_cloth,
 from .solver import MPMSolver
 
 NUM_JOINT_V, NUM_JOINT_F = 256, 128
+DT = 1e-4
+WARM_FRAMES, TIMED_FRAMES = 2, 5
 BODY_CENTER, BODY_R = (1.0, 0.9, 1.0), 0.25
 
 
@@ -76,7 +80,7 @@ def build(grid: int = 128, sand: int = 0, nx: int = 183,
     return solver, state, model, scene
 
 
-def run(grid=128, sand=0, frames=2, substeps=100, dt=1e-4, nx=183,
+def run(grid=128, sand=0, frames=2, substeps=100, dt=DT, nx=183,
         device=None, log=print):
     """``frames`` x ``substeps`` substeps of the bench scene; returns the
     final state."""
@@ -97,6 +101,29 @@ def run(grid=128, sand=0, frames=2, substeps=100, dt=1e-4, nx=183,
             msg += f", sand mean y {float(y[sand_sl].mean()):.6f}"
         log(f"{msg}, {1e3 * wall / substeps:.3f} ms/substep")
     return state
+
+
+def substeps_per_sec(grid=128, sand=0, device=None, nx=183,
+                     substeps=100) -> float:
+    """Substeps per second of the bench scene, timed as the JAX
+    ``bench.py::run_sim`` times it: WARM_FRAMES frames, then TIMED_FRAMES
+    frames of ``substeps`` substeps at dt = 1e-4 ending in one
+    synchronize; raises unless the state is finite."""
+    solver, state, model, scene = build(grid, sand, nx, device=device)
+    cuda = solver.device.type == "cuda"
+    t = 0.0
+    for _ in range(WARM_FRAMES):
+        state, t = solver.frame(state, model, DT, substeps, t, **scene)
+    if cuda:
+        torch.cuda.synchronize(solver.device)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_FRAMES):
+        state, t = solver.frame(state, model, DT, substeps, t, **scene)
+    if cuda:
+        torch.cuda.synchronize(solver.device)
+    wall = time.perf_counter() - t0
+    solver.check_finite(state, context="timed frames")
+    return TIMED_FRAMES * substeps / wall
 
 
 def main(argv=None):

@@ -19,7 +19,8 @@ Runs ``--steps`` train steps, then one densification pass as the stage-2
 loop runs it: ``add_densification_stats`` from the last step's view-space
 gradient, ``densify_and_prune`` (extent 1, the bench's spatial scale) and
 ``reset_opacity``.  Prints one JSON line (ms and loss per step, alive
-splats before and after, overflow) and fails on overflow or a NaN loss.
+splats before and after, overflow), returns it as a dict, and fails on
+overflow or a NaN loss.
 Runs on the CUDA device unless ``--device cpu``; ``--width``/``--height``
 cut the image (the focal length scales with the width), ``--mesh`` the
 body mesh and ``--work-cap`` the phase-2 worklist.
@@ -135,7 +136,7 @@ def main(argv=None):
     gen = torch.Generator(device).manual_seed(0)
     alive_after, min_per_face = densify_pass(avatar, params, n_faces, aux,
                                              opt, gen)
-    print(json.dumps({
+    result = {
         "scene": "avatar_train", "device": str(device),
         "width": args.width, "height": args.height,
         "gaussians": params.splats.capacity, "faces": n_faces, **raster,
@@ -145,7 +146,9 @@ def main(argv=None):
         "work_overflow": int(aux["work_overflow"]),
         "big_overflow": int(aux["big_overflow"]),
         "alive_before": alive_before, "alive_after": alive_after,
-        "min_splats_per_face": min_per_face}))
+        "min_splats_per_face": min_per_face}
+    print(json.dumps(result))
+    return result
 
 
 if __name__ == "__main__":

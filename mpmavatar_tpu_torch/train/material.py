@@ -130,7 +130,10 @@ class MaterialTrainer:
             "target_sim": self.tf.wld2sim(self.train_verts, dev)[1:],
             "joint_velo_sim": f32(self.train_verts_velo[:, :num_joint_v])
             * self.tf.scale,
-            "faces_j": self._faces[:num_joint_f],
+            # a pinned face may name a vertex past the pinned prefix:
+            # JAX's gather clamps the index to the last pinned vertex
+            "faces_j": self._faces[:num_joint_f].clamp(
+                max=max(num_joint_v - 1, 0)),
         }
 
         init = {"D": cfg.init_D, "E": cfg.init_E / 100.0, "H": 1.0}
@@ -270,7 +273,7 @@ class MaterialTrainer:
                 jv = jf = None
                 if joint_velo_fn is not None:
                     jv = f32(joint_velo_fn(i)) * scale
-                    jf = jv[self._faces[:static.num_joint_f]].mean(1)
+                    jf = jv[self._rollout_data["faces_j"]].mean(1)
                 state, t = self.solver.frame(
                     state, model, dt, cfg.substep, t,
                     mesh_x=self.tf.wld2sim(test_smplx[i], dev),

@@ -310,6 +310,32 @@ def test_rollout_loss_and_gradient_match_jax(pair, monkeypatch):
                                                         j_grads[k])
 
 
+def test_pinned_faces_past_the_pinned_vertices_match_jax():
+    """Pinned faces that name vertices past the pinned prefix (the
+    hanging cloth's first faces reach its second row): JAX's gather
+    clamps those indices to the last pinned vertex, and the port's
+    rollout loss and simulate agree with it (the port raised an
+    IndexError before)."""
+    faces, first, train, body, bf, nj = scene(frames=1)
+    nf = 2
+    assert int(faces[:nf].max()) >= nj
+    jt = JTrainer(JTrainerConfig(**KNOBS, column_k=0, column_c_cap=0,
+                                 mesh_column_k=0),
+                  faces, first, train, body, bf, nj, nf)
+    tt = MaterialTrainer(MaterialTrainerConfig(**KNOBS), faces, first,
+                         train, body, bf, nj, nf, device="cpu")
+    j_loss, _ = _jax_grads(jt)
+    with torch.no_grad():
+        loss = float(tt.rollout_loss(tt.params))
+    assert _rel(loss, j_loss) <= LOSS_TOL
+    jv = np.linspace(0.0, 0.1, 3 * nj, dtype=np.float32).reshape(nj, 3)
+    args = (train[0], np.zeros_like(train[0]), body[:1],
+            np.zeros_like(body[:1]), 1)
+    ref = jt.simulate(*args, joint_velo_fn=lambda i: jnp.asarray(jv))
+    out = tt.simulate(*args, joint_velo_fn=lambda i: jv)
+    np.testing.assert_allclose(out[0], np.asarray(ref[0]), atol=SIM_ATOL)
+
+
 def test_mover_splat_is_on_the_gradient_path(monkeypatch):
     """From the second substep on the mover splats pinned positions that
     require grad, and its backward gives them a nonzero gradient.  Those

@@ -1,0 +1,8 @@
+"""``torch.cuda.max_memory_allocated`` over the whole run, set-up
+included, GiB."""
+
+
+def read(ctx):
+    if ctx["peak_bytes"] is None:
+        return None
+    return ctx["peak_bytes"] / 2 ** 30

@@ -1844,7 +1844,7 @@ def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
           f"{1e3 * bwd_c:.1f} ms)")
     # the kernels' outputs detached, as before they had a backward
     real_call = _autograd.call
-    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
     try:
         wrong = run(solver, state0, model)[0]
     finally:
@@ -2076,7 +2076,7 @@ def material_path(dev, per_sub) -> tuple:
                                    MAT_GRAD_SUBSTEPS)[0])
     cpu_s = time.perf_counter() - t0
     real_call = _autograd.call
-    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
     try:
         g_wrong = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
                                          MAT_GRAD_SUBSTEPS)[0])
@@ -2128,7 +2128,7 @@ def material_path(dev, per_sub) -> tuple:
     t0 = time.perf_counter()
     g_cpu_c = grads(with_contact("cpu"))
     cpu_c_s = time.perf_counter() - t0
-    _autograd.call = lambda kernel, twin, *args: kernel(*args)
+    _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
     try:
         g_wrong_c = grads(with_contact(dev))
     finally:

@@ -57,27 +57,42 @@ class GridMaskCollider:
     mask: torch.Tensor  # (G, G, G) int
 
 
+class _Window:
+    """A pre-P2G window: ``start_s``/``end_s`` are its interval as
+    registered, on the host (tracing's ``windows.live`` reads them; the
+    step compares the device scalars ``start_time``/``end_time``)."""
+
+    def live_at(self, time: float) -> bool:
+        """Whether the interval holds ``time``; a window built without
+        the host's interval counts as live."""
+        return self.start_s is None or self.start_s <= time < self.end_s
+
+
 @dataclasses.dataclass(frozen=True)
-class ParticleImpulse:
+class ParticleImpulse(_Window):
     """Pre-P2G particle impulse."""
     mask: torch.Tensor        # (P,) int
     force: torch.Tensor       # (3,)
     start_time: torch.Tensor
     end_time: torch.Tensor
     scale_by_mass: bool = True
+    start_s: float | None = None
+    end_s: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
-class ParticleVelocityModifier:
+class ParticleVelocityModifier(_Window):
     """Dirichlet particle velocity before P2G."""
     mask: torch.Tensor        # (P,) int
     velocity: torch.Tensor    # (3,)
     start_time: torch.Tensor
     end_time: torch.Tensor
+    start_s: float | None = None
+    end_s: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)
-class RotationVelocityModifier:
+class RotationVelocityModifier(_Window):
     """Cylinder-region rotation Dirichlet velocity about ``normal`` with
     optional translation along it."""
     mask: torch.Tensor
@@ -89,6 +104,8 @@ class RotationVelocityModifier:
     translation_scale: torch.Tensor
     start_time: torch.Tensor
     end_time: torch.Tensor
+    start_s: float | None = None
+    end_s: float | None = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,6 +24,7 @@ from ..ops import grid_pipeline as _gp
 from ..ops import splat as _splat
 from ..ops import stress as _stress
 from ..ops import transfer as _transfer
+from ..utils import profiling
 from . import constitutive, linalg
 from .colliders import (CUT, STICKY, SLIP, BoundingBoxCollider,
                         ColliderSet, CuboidCollider, GridMaskCollider,
@@ -407,7 +408,14 @@ def g2p(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, grid_v_out,
 
 def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
                       time: float):
-    """Particle impulses and velocity modifiers, in registration order."""
+    """Particle impulses and velocity modifiers, in registration order.
+    Traced, it counts the windows looked at and those whose interval
+    holds ``time`` (from the host's copy of each interval)."""
+    if profiling.on():
+        windows = colliders.impulses + colliders.velocity_modifiers
+        profiling.count("windows.evaluated", len(windows))
+        profiling.count("windows.live",
+                        sum(w.live_at(time) for w in windows))
     v = state.v
     for imp in colliders.impulses:
         active = (time >= imp.start_time) & (time < imp.end_time)
@@ -515,17 +523,24 @@ def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
     if grid_stage is None:
         grid_stage = make_grid_stage(cfg, colliders)
     dt, time = float(dt), float(time)
-    state = dataclasses.replace(
-        state, v=_pre_p2g_velocity(colliders, state, dt, time))
-
-    new_d, new_f, new_ys, stress, vertex_force = compute_stress(
-        cfg, state, model, dt)
-    state = dataclasses.replace(state, d=new_d, F=new_f,
-                                yield_stress=new_ys)
-    grid_v_in, grid_m = p2g(cfg, state, model, stress, vertex_force, dt)
-    grid_v_out = grid_stage(grid_v_in, grid_m, state, model, time, dt,
-                            mesh_x, mesh_v, (joint_verts_v, joint_faces_v,
-                                             joint_traditional_v))
-    x1, v1, c1, f_trial, d1 = g2p(cfg, state, model, grid_v_out, dt)
-    return dataclasses.replace(state, x=x1, v=v1, C=c1, F_trial=f_trial,
-                               d=d1)
+    with profiling.span("substep"):
+        with profiling.span("substep.windows"):
+            state = dataclasses.replace(
+                state, v=_pre_p2g_velocity(colliders, state, dt, time))
+        with profiling.span("substep.stress"):
+            new_d, new_f, new_ys, stress, vertex_force = compute_stress(
+                cfg, state, model, dt)
+            state = dataclasses.replace(state, d=new_d, F=new_f,
+                                        yield_stress=new_ys)
+        with profiling.span("substep.p2g"):
+            grid_v_in, grid_m = p2g(cfg, state, model, stress, vertex_force,
+                                    dt)
+        with profiling.span("substep.grid"):
+            grid_v_out = grid_stage(grid_v_in, grid_m, state, model, time,
+                                    dt, mesh_x, mesh_v,
+                                    (joint_verts_v, joint_faces_v,
+                                     joint_traditional_v))
+        with profiling.span("substep.g2p"):
+            x1, v1, c1, f_trial, d1 = g2p(cfg, state, model, grid_v_out, dt)
+            return dataclasses.replace(state, x=x1, v=v1, C=c1,
+                                       F_trial=f_trial, d=d1)

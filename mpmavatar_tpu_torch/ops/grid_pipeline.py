@@ -110,7 +110,7 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
                 float(dt), int(cell_start))
         if not grid_v_in.is_cuda:
             return plain(*args)
-        return _autograd.call(launch, plain, *args)
+        return _autograd.call("grid_pipeline", launch, plain, *args)
 
     def plain(*args):
         *args, cell_start = args

@@ -66,8 +66,8 @@ def splat(points, values, n_grid: int, inv_dx: float,
         return splat_plain(points, values, n_grid, inv_dx, bounds_check)
     _build.check_branch_counts("splat", branch_counts)
     launch = lambda *args: _launch(*args, branch_counts)
-    return _autograd.call(launch, splat_plain, points, values, n_grid,
-                          inv_dx, bounds_check)
+    return _autograd.call("splat", launch, splat_plain, points, values,
+                          n_grid, inv_dx, bounds_check)
 
 
 def _launch(points, values, n_grid, inv_dx, bounds_check, branch_counts):

@@ -48,8 +48,8 @@ def cloth_stress(d, r_inv, vol, sel, mu, lam, gamma, kappa, friction_coeff):
         return cloth_stress_plain(d, r_inv, vol, sel, mu, lam, gamma, kappa,
                                   friction_coeff)
     new_d, stress, forces = _autograd.call(
-        _launch_cloth_stress, _cloth_stress_twin, d, r_inv, vol, sel, mu,
-        lam, gamma, kappa, friction_coeff)
+        "cloth_stress", _launch_cloth_stress, _cloth_stress_twin, d, r_inv,
+        vol, sel, mu, lam, gamma, kappa, friction_coeff)
     return new_d, stress, forces[:, 0], forces[:, 1], forces[:, 2]
 
 
@@ -205,8 +205,8 @@ def sand_stress(f_trial, f_prev, sel, mu, lam, alpha,
     if not f_trial.is_cuda:
         return sand_stress_plain(f_trial, f_prev, sel, mu, lam, alpha,
                                  return_branch)
-    return _autograd.call(_launch_sand, sand_stress_plain, f_trial, f_prev,
-                          sel, mu, lam, alpha, return_branch)
+    return _autograd.call("sand_stress", _launch_sand, sand_stress_plain,
+                          f_trial, f_prev, sel, mu, lam, alpha, return_branch)
 
 
 def _launch_sand(f_trial, f_prev, sel, mu, lam, alpha, return_branch):

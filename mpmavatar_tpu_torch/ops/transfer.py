@@ -117,8 +117,8 @@ def p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid: int, inv_dx: float,
                          inv_dx, dx)
     _build.check_branch_counts("p2g", branch_counts)
     launch = lambda *args: _launch_p2g(*args, branch_counts)
-    return _autograd.call(launch, p2g_plain, x, v, c_eff, mass, sel, stress,
-                          vforce, n_grid, inv_dx, dx)
+    return _autograd.call("p2g", launch, p2g_plain, x, v, c_eff, mass, sel,
+                          stress, vforce, n_grid, inv_dx, dx)
 
 
 def _launch_p2g(x, v, c_eff, mass, sel, stress, vforce, n_grid, inv_dx, dx,
@@ -177,7 +177,8 @@ def g2p(x, grid_v, n_grid: int, inv_dx: float, branch_counts=None):
         return g2p_plain(x, grid_v, n_grid, inv_dx)
     _build.check_branch_counts("g2p", branch_counts)
     launch = lambda *args: _launch_g2p(*args, branch_counts)
-    return _autograd.call(launch, g2p_plain, x, grid_v, n_grid, inv_dx)
+    return _autograd.call("g2p", launch, g2p_plain, x, grid_v, n_grid,
+                          inv_dx)
 
 
 def _launch_g2p(x, grid_v, n_grid, inv_dx, branch_counts):

@@ -46,6 +46,7 @@ from .. import resolve_device
 from ..avatar import deform_tracked_to_poses, frame_velocities, load_smplx_npz
 from ..core.types import (MPMModel, MPMState, build_body_sphere,
                           build_cloth, cloth_scene)
+from ..utils import profiling
 from .solver import MPMSolver, SimTransform
 
 NUM_JOINTS, NUM_BETAS, NUM_EXPR = 55, 300, 100
@@ -176,18 +177,19 @@ class PosePlayback:
         vertices' taken from the pinned vertices' velocities alone, as
         run_demo.py does: a face vertex past them reads the last pinned
         vertex's (JAX's gather clamps the index)."""
-        pb, tf, cfg = self.playback, SIM_TF, self.solver.cfg
-        n_pose = pb["smplx"].shape[0]
-        moving = i < n_pose - 1
-        bx = pb["smplx"][min(i, n_pose - 1)]
-        bv = pb["smplx_velo"][i] if moving else torch.zeros_like(bx)
-        vv = tf.vel2sim(pb["verts_velo"][i] if moving
-                        else torch.zeros_like(pb["verts"][0]))
-        jv = vv[:cfg.num_joint_v]
-        faces = self.state.faces[:cfg.num_joint_f].long()
-        return {"mesh_x": tf.wld2sim(bx), "mesh_v": tf.vel2sim(bv),
-                "joint_verts_v": jv,
-                "joint_faces_v": jv[faces.clamp(max=len(jv) - 1)].mean(1)}
+        with profiling.span("frame.inputs"):
+            pb, tf, cfg = self.playback, SIM_TF, self.solver.cfg
+            n_pose = pb["smplx"].shape[0]
+            moving = i < n_pose - 1
+            bx = pb["smplx"][min(i, n_pose - 1)]
+            bv = pb["smplx_velo"][i] if moving else torch.zeros_like(bx)
+            vv = tf.vel2sim(pb["verts_velo"][i] if moving
+                            else torch.zeros_like(pb["verts"][0]))
+            jv = vv[:cfg.num_joint_v]
+            faces = self.state.faces[:cfg.num_joint_f].long()
+            return {"mesh_x": tf.wld2sim(bx), "mesh_v": tf.vel2sim(bv),
+                    "joint_verts_v": jv,
+                    "joint_faces_v": jv[faces.clamp(max=len(jv) - 1)].mean(1)}
 
 
 def load_body(n_theta: int = 97, n_phi: int = 108, device=None):

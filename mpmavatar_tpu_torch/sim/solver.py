@@ -29,6 +29,7 @@ from ..core.colliders import (BoundingBoxCollider, ColliderSet,
                               CUT, FRICTIONAL, SLIP, STICKY)
 from ..core.types import (MPMModel, MPMState, MPMStaticConfig,
                           finalize_mu_lam)
+from ..utils import profiling
 
 MATERIAL_IDS = {
     "jelly": 0, "metal": 1, "sand": 2, "foam": 3, "snow": 4,
@@ -48,6 +49,15 @@ class MPMSolver:
     def _f32(self, value):
         return torch.as_tensor(np.asarray(value, np.float32),
                                device=self.device)
+
+    def _window(self, start_time, end_time) -> dict:
+        """A release window's interval: the device scalars the step
+        compares, and the same float32 values on the host for tracing's
+        ``windows.live``."""
+        return dict(start_time=self._f32(start_time),
+                    end_time=self._f32(end_time),
+                    start_s=float(np.float32(start_time)),
+                    end_s=float(np.float32(end_time)))
 
     def _i32(self, value):
         return torch.as_tensor(np.asarray(value, np.int32),
@@ -124,16 +134,15 @@ class MPMSolver:
                                  end_time=999.0, scale_by_mass=True):
         self._replace(impulses=self.colliders.impulses + (ParticleImpulse(
             mask=self._i32(mask), force=self._f32(force),
-            start_time=self._f32(start_time), end_time=self._f32(end_time),
-            scale_by_mass=scale_by_mass),))
+            scale_by_mass=scale_by_mass,
+            **self._window(start_time, end_time)),))
 
     def enforce_particle_velocity_by_mask(self, mask, velocity,
                                           start_time=0.0, end_time=999.0):
         self._replace(velocity_modifiers=self.colliders.velocity_modifiers
                       + (ParticleVelocityModifier(
                           mask=self._i32(mask), velocity=self._f32(velocity),
-                          start_time=self._f32(start_time),
-                          end_time=self._f32(end_time)),))
+                          **self._window(start_time, end_time)),))
 
     def enforce_particle_velocity_translation(self, state, point, size,
                                               velocity, start_time=0.0,
@@ -174,8 +183,7 @@ class MPMSolver:
                           horizontal_axis_2=self._f32(h2),
                           rotation_scale=self._f32(rotation_scale),
                           translation_scale=self._f32(translation_scale),
-                          start_time=self._f32(start_time),
-                          end_time=self._f32(end_time)),))
+                          **self._window(start_time, end_time)),))
 
     def release_particles_sequentially(self, state, normal, start_position,
                                        end_position, start_time, end_time,
@@ -222,34 +230,37 @@ class MPMSolver:
         ``torch.utils.checkpoint``, as the JAX frame checkpoints its
         scanned body: the backward keeps only each substep's input state
         and recomputes the substep (its kernels launch again) when it
-        needs the rest.  The forward is the same computation."""
-        t = np.float32(time0)
-        dt32 = np.float32(dt)
-        grid_stage = self.grid_stage()
-        as_dev = lambda a: None if a is None else torch.as_tensor(
-            a, dtype=torch.float32, device=self.device)
-        mesh_x, mesh_v = as_dev(mesh_x), as_dev(mesh_v)
-        joints = dict(joint_verts_v=as_dev(joint_verts_v),
-                      joint_faces_v=as_dev(joint_faces_v))
+        needs the rest.  The forward is the same computation.  Traced, the
+        span ``frame``'s self time is the glue around the substeps."""
+        with profiling.span("frame"):
+            t = np.float32(time0)
+            dt32 = np.float32(dt)
+            grid_stage = self.grid_stage()
+            as_dev = lambda a: None if a is None else torch.as_tensor(
+                a, dtype=torch.float32, device=self.device)
+            mesh_x, mesh_v = as_dev(mesh_x), as_dev(mesh_v)
+            joints = dict(joint_verts_v=as_dev(joint_verts_v),
+                          joint_faces_v=as_dev(joint_faces_v))
 
-        def substep(state, mx, time):
-            return stepping.p2g2p(self.cfg, self.colliders, state, model,
-                                  float(dt32), time, mesh_x=mx,
-                                  mesh_v=mesh_v, grid_stage=grid_stage,
-                                  **joints)
+            def substep(state, mx, time):
+                return stepping.p2g2p(self.cfg, self.colliders, state, model,
+                                      float(dt32), time, mesh_x=mx,
+                                      mesh_v=mesh_v, grid_stage=grid_stage,
+                                      **joints)
 
-        for s in range(num_substeps):
-            mx = None if mesh_x is None else \
-                mesh_x + float(np.float32(s) * dt32) * mesh_v
-            if remat:
-                # the substep draws no random numbers: no RNG state to keep
-                state = checkpoint(substep, state, mx, float(t),
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
-            else:
-                state = substep(state, mx, float(t))
-            t = np.float32(t + dt32)
-        return state, float(t)
+            for s in range(num_substeps):
+                mx = None if mesh_x is None else \
+                    mesh_x + float(np.float32(s) * dt32) * mesh_v
+                if remat:
+                    # the substep draws no random numbers: no RNG state to
+                    # keep
+                    state = checkpoint(substep, state, mx, float(t),
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+                else:
+                    state = substep(state, mx, float(t))
+                t = np.float32(t + dt32)
+            return state, float(t)
 
     @staticmethod
     def check_finite(state: MPMState, context: str = "rollout"):

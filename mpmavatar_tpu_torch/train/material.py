@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from ..core import types
 from ..sim import MPMSolver, SimTransform, reset_density, set_E_nu
+from ..utils import profiling
 from ..utils.schedules import cosine_lr
 
 NAMES = ("D", "E", "H")
@@ -204,13 +205,20 @@ class MaterialTrainer:
     def train_one_step(self):
         """One optimization step with autodiff gradients, scaled by the
         cosine schedule before Adam.  Returns (the loss before the step,
-        the parameters after it)."""
-        loss = self.rollout_loss(self.params)
-        grads = torch.autograd.grad(loss, [self.params[k] for k in NAMES])
-        lr_scale = float(self.lr_schedule(self.step))
-        self._apply([g * lr_scale for g in grads])
-        loss_f = float(loss.detach())
-        params = self._params_now()
+        the parameters after it).  Traced: the spans ``train.forward``,
+        ``train.backward`` and ``train.readback`` (the host's wait for the
+        device) inside ``train.step``, whose self time is Adam's."""
+        with profiling.span("train.step"):
+            with profiling.span("train.forward"):
+                loss = self.rollout_loss(self.params)
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(loss,
+                                            [self.params[k] for k in NAMES])
+            lr_scale = float(self.lr_schedule(self.step))
+            self._apply([g * lr_scale for g in grads])
+            with profiling.span("train.readback"):
+                loss_f = float(loss.detach())
+                params = self._params_now()
         if loss_f < self.best["loss"]:
             self.best = {"loss": loss_f, "params": params}
         return loss_f, params

@@ -46,7 +46,9 @@ def port_of(cfg, state, model):
 
 
 def port_collider(col):
-    """The port's collider of the same type and values as a JAX one."""
+    """The port's collider of the same type and values as a JAX one; a
+    release window also gets the host's copy of its interval, as the
+    port's registration keeps it."""
     cls = getattr(tcol, type(col).__name__)
     kw = {}
     for f in dataclasses.fields(col):
@@ -56,6 +58,9 @@ def port_collider(col):
         elif hasattr(val, "shape"):
             val = torch.as_tensor(np.array(val))
         kw[f.name] = val
+    if issubclass(cls, tcol._Window):
+        kw.update(start_s=float(np.float32(col.start_time)),
+                  end_s=float(np.float32(col.end_time)))
     return cls(**kw)
 
 

@@ -397,7 +397,7 @@ def test_function_plumbing_with_a_stand_in_forward():
                      requires_grad=True)
     b = torch.tensor(rng.normal(size=4), dtype=torch.float32)
     idx = torch.tensor([0, 3, 1, 1, 2])
-    y0, y1, y2 = _autograd.call(kernel, twin, a, idx, b, 2.5)
+    y0, y1, y2 = _autograd.call("stand_in", kernel, twin, a, idx, b, 2.5)
     assert calls == [False]
     assert y0.grad_fn is not None and y1.grad_fn is not None
     assert not y2.requires_grad
@@ -413,16 +413,16 @@ def test_function_plumbing_with_a_stand_in_forward():
     assert torch.equal(ga0, torch.autograd.grad(ref0, [a], g0)[0])
     # b needs grad too: its gradient, None for idx and k
     b.requires_grad_(True)
-    y0, y1, _ = _autograd.call(kernel, twin, a, idx, b, 2.5)
+    y0, y1, _ = _autograd.call("stand_in", kernel, twin, a, idx, b, 2.5)
     fn = y0.grad_fn
     grads = fn.apply(g0, g1, None)
-    assert grads[3] is None and grads[5] is None
+    assert grads[4] is None and grads[6] is None
     ref = torch.autograd.grad(list(twin(a, idx, b, 2.5)[:2]), [a, b],
                               [g0, g1])
-    assert torch.equal(grads[2], ref[0]) and torch.equal(grads[4], ref[1])
+    assert torch.equal(grads[3], ref[0]) and torch.equal(grads[5], ref[1])
     # no grad needed: the kernel alone, no Function
     with torch.no_grad():
-        out = _autograd.call(kernel, twin, a, idx, b, 2.5)
+        out = _autograd.call("stand_in", kernel, twin, a, idx, b, 2.5)
     assert out[0].grad_fn is None and len(calls) == 3
 
 

@@ -4,7 +4,7 @@ Python parser) and PLY files written by one package and read by the
 other, npz checkpoints read both ways, the torch checkpoint round trip
 and ``latest_checkpoint``, the native KNN and ``mean_dist2_3nn`` against
 the JAX package's native library and brute force, the mesh preview's
-image, ``RunLogger``'s JSONL, ``PhaseTimer``, ``trace``,
+image, ``RunLogger``'s JSONL, ``trace`` with a span in it,
 ``expon_lr_func``, ``safe_state`` and ``run_subprocess``.
 
 Files, images, parsed arrays, checkpoint leaves and KNN results are held
@@ -308,26 +308,12 @@ def test_run_logger_writes_the_jax_jsonl(tmp_path):
     assert lines["port"][1] == {"step": 2, "train/loss": 0.25}
 
 
-def test_phase_timer_counts_and_times_phases(capsys):
-    timer = profiling.PhaseTimer()
-    x = torch.ones(10)
-    for _ in range(3):
-        with timer.phase("p2g", block_on=x):
-            torch.cumsum(x, 0)
-    with timer.phase("g2p"):
-        pass
-    assert timer.counts == {"p2g": 3, "g2p": 1}
-    assert timer.totals["p2g"] > 0.0
-    timer.print_time_profile()
-    assert "p2g" in capsys.readouterr().out
-
-
 def test_trace_writes_a_trace_file(tmp_path):
     with profiling.trace(str(tmp_path / "trace")):
-        with profiling.named_scope("phase"):
+        with profiling.span("substep.p2g"):
             torch.ones(100).sum()
     path = tmp_path / "trace" / "trace.json"
-    assert path.exists() and "phase" in path.read_text()
+    assert path.exists() and '"substep.p2g"' in path.read_text()
 
 
 @pytest.mark.parametrize("kw", [dict(lr_init=1.6e-4, lr_final=1.6e-6,

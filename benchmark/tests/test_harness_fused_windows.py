@@ -1,0 +1,29 @@
+"""``fused_windows.sim`` reads the counter ``windows.fused`` from the
+program's snapshot per traced substep, and nothing from a program that
+has no such counter."""
+
+from __future__ import annotations
+
+import pytest
+
+from benchmark import harness, spans
+
+
+def _snapshot(counters, substeps=400):
+    return {"spans": {"substep": {"count": substeps}}, "counters": counters}
+
+
+@pytest.mark.parametrize("counters, want", [
+    ({"windows.evaluated": 20000, "windows.live": 0,
+      "windows.fused": 20000}, 50.0),
+    ({"windows.evaluated": 20000, "windows.live": 0, "windows.fused": 0},
+     0.0),
+    ({"windows.evaluated": 20000, "windows.live": 0}, None),
+])
+def test_fused_windows_reads_the_counter_per_traced_substep(
+        counters, want, monkeypatch):
+    monkeypatch.setattr(spans, "snapshot", lambda: _snapshot(counters))
+    read = harness.reader("fused_windows.sim")
+    assert read({"substeps": 400}) == want
+    # a session that is not the traced frames' reads nothing
+    assert read({"substeps": 399}) is None

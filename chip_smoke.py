@@ -2773,7 +2773,8 @@ def depth_gap(m2d, depth, conic, opacity, pixels):
 
 def demo_path(dev, smi, kchecks, per_sub) -> tuple:
     """Phase 12, the zero-shot demo, in a git-ignored directory removed
-    afterwards.  ``kchecks`` holds phase 4's K2, K4 and K8 checks.
+    afterwards.  ``kchecks`` holds phase 4's K2, K4 and K8 checks and the
+    release windows' kernel check.
     Returns (steady ms per substep, the run's launches)."""
     import shutil
     work = REPO / "output" / "chip_smoke_demo"
@@ -2901,6 +2902,12 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
     v_mod = stepping._pre_p2g_velocity(solver.colliders, state, dt, t_live)
     still = float(v_mod[sel].abs().max()) if bool(sel.any()) else 0.0
     untouched = bool(torch.equal(v_mod[~sel], state.v[~sel]))
+    # the kernel that applied them, against the plain loop, at that time
+    # and before the first window opens
+    for t_w in (t_live, 0.0):
+        kchecks["windows"](f"windows (the demo's {len(mods)} windows, "
+                           f"t = {t_w:.3f} s)", solver.colliders, state, dt,
+                           t_w, launches)
     # the fall over frame FALL_FRAME from the sand's OBJs: after its first
     # substep every grain falls as v_n = -g n dt, x_n = x_(n-1) + dt v_n
     tf = SimTransform.from_verts(read_obj(a("cloth.obj"))[0])
@@ -4319,6 +4326,7 @@ def main() -> int:
     from mpmavatar_tpu_torch.ops import splat as ksplat
     from mpmavatar_tpu_torch.ops import stress as kstress
     from mpmavatar_tpu_torch.ops import transfer as ktransfer
+    from mpmavatar_tpu_torch.ops import windows as kwin
     from mpmavatar_tpu_torch.sim import bench_scene, cloth_drop
 
     dev = torch.device("cuda")
@@ -4762,6 +4770,34 @@ def main() -> int:
     sand_check("sand_stress (tip / cone / reflected set)",
                sand_set(SAND_B, dev))
 
+    def windows_check(label, colliders, state, dt, t, launches_of):
+        """The release windows' kernel against the plain loop on a
+        state's particles at time ``t``, bit for bit (the set holds no
+        rotation modifier)."""
+        args = (colliders, state.v, state.x, state.mass, dt, t)
+        out = kwin.apply_windows(*args)
+        ref = kwin.windows_plain(*args)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(out, ref))
+        windows = colliders.impulses + colliders.velocity_modifiers
+        live = sum(w.live_at(t) for w in windows)
+        n = state.v.shape[0]
+        words = kwin.window_pack(colliders).words.shape[0]
+        # bytes: v in and out (24 B) per particle, and its membership
+        # words while a window is live; no x or mass (no rotation, no
+        # impulse)
+        check("windows", [out], [ref], "windows.cu",
+              "none: the glue of core/stepping.py::_pre_p2g_velocity",
+              lambda: kwin.apply_windows(*args),
+              lambda: kwin.windows_plain(*args),
+              n * (24 + (4 * words if live else 0)), 0.0, launches_of,
+              label=label,
+              err=(float((out - ref).abs().max()), same,
+                   f"bit for bit {same} ({live} of {len(windows)} windows "
+                   f"live over {n} particles);"),
+              extra={"windows": len(windows), "live": live, "particles": n,
+                     **kwin.kernel_info(len(windows))})
+
     # the backwards: autograd over each plain version through the
     # wrapper's autograd Function, at the shapes above, from seeded
     # cotangents (the backward launches no kernel)
@@ -4970,10 +5006,11 @@ def main() -> int:
         cli_ms, cli_launches = stage24_path(dev, smi, work24)
 
         # ---- 12. the zero-shot demo ------------------------------------
-        per_sub_demo = dict(per_sub, splat=1, sand_stress=1)
+        per_sub_demo = dict(per_sub, splat=1, sand_stress=1, windows=1)
         demo_ms, demo_launches = demo_path(
             dev, smi, {"p2g": p2g_check, "splat": splat_check,
-                       "sand": sand_check}, per_sub_demo)
+                       "sand": sand_check, "windows": windows_check},
+            per_sub_demo)
 
         # ---- 13. stage-1 tracking on phase 11's capture ----------------
         track_ms, track_launches = tracking_path(

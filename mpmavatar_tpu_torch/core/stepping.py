@@ -24,12 +24,12 @@ from ..ops import grid_pipeline as _gp
 from ..ops import splat as _splat
 from ..ops import stress as _stress
 from ..ops import transfer as _transfer
+from ..ops import windows as _windows
 from ..utils import profiling
 from . import constitutive, linalg
 from .colliders import (CUT, STICKY, SLIP, BoundingBoxCollider,
                         ColliderSet, CuboidCollider, GridMaskCollider,
-                        MeshCollider, RotationVelocityModifier,
-                        SurfaceCollider)
+                        MeshCollider, SurfaceCollider)
 from .types import MPMModel, MPMState, MPMStaticConfig
 
 
@@ -408,45 +408,20 @@ def g2p(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, grid_v_out,
 
 def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
                       time: float):
-    """Particle impulses and velocity modifiers, in registration order.
-    Traced, it counts the windows looked at and those whose interval
-    holds ``time`` (from the host's copy of each interval)."""
+    """Particle impulses and velocity modifiers, in registration order:
+    ``ops/windows.py``'s one launch on CUDA, its plain loop on the CPU,
+    ``state.v`` itself with no window.  Traced, it counts the windows
+    looked at, those whose interval holds ``time`` (from the host's copy
+    of each interval) and those the fused launch applied (0 on the CPU)."""
     if profiling.on():
         windows = colliders.impulses + colliders.velocity_modifiers
         profiling.count("windows.evaluated", len(windows))
         profiling.count("windows.live",
                         sum(w.live_at(time) for w in windows))
-    v = state.v
-    for imp in colliders.impulses:
-        active = (time >= imp.start_time) & (time < imp.end_time)
-        if imp.scale_by_mass:
-            delta = imp.force[None, :] / state.mass[:, None] * dt
-        else:
-            delta = (imp.force[None, :] * dt).expand_as(v)
-        v = torch.where((active & (imp.mask >= 1))[:, None], v + delta, v)
-    for mod in colliders.velocity_modifiers:
-        active = (time >= mod.start_time) & (time < mod.end_time)
-        if isinstance(mod, RotationVelocityModifier):
-            offset = state.x - mod.point[None, :]
-            axial = torch.sum(offset * mod.normal[None, :], -1)
-            radial = offset - axial[:, None] * mod.normal[None, :]
-            hd = torch.sqrt(torch.sum(radial * radial, -1) + 1e-20)
-            cosine = torch.sum(offset * mod.horizontal_axis_1[None, :],
-                               -1) / hd
-            theta = torch.arccos(torch.clamp(cosine, -1.0, 1.0))
-            theta = torch.where(
-                torch.sum(offset * mod.horizontal_axis_2[None, :], -1) > 0,
-                theta, -theta)
-            v_rot = (-hd * torch.sin(theta) * mod.rotation_scale)[:, None] \
-                * mod.horizontal_axis_1[None, :] \
-                + (hd * torch.cos(theta) * mod.rotation_scale)[:, None] \
-                * mod.horizontal_axis_2[None, :] \
-                + mod.translation_scale * mod.normal[None, :]
-            v = torch.where((active & (mod.mask == 1))[:, None], v_rot, v)
-        else:
-            v = torch.where((active & (mod.mask == 1))[:, None],
-                            mod.velocity.expand_as(v), v)
-    return v
+        profiling.count("windows.fused",
+                        len(windows) if state.v.is_cuda else 0)
+    return _windows.apply_windows(colliders, state.v, state.x, state.mass,
+                                  dt, time)
 
 
 def make_grid_stage(cfg: MPMStaticConfig, colliders: ColliderSet):

@@ -132,6 +132,7 @@ _SIGNATURES = {
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
+    "launch_windows": [_P] * 5 + [_I, _I, _I, _F, _F, _P, _P],
     "cloth_stress_info": [_IP],
     "sand_stress_info": [_IP],
     "p2g_info": [_IP],
@@ -139,6 +140,7 @@ _SIGNATURES = {
     "splat_info": [_I, _IP],
     "composite_info": [_I, _I, _IP],
     "composite_bwd_info": [_I, _I, _IP],
+    "windows_info": [_I, _IP],
 }
 
 

@@ -1462,8 +1462,8 @@ def test_avatar_checkpoint_round_trip_on_the_card(dev, tmp_path):
 def test_demo_cut_scene_goes_through_the_kernels_and_matches_the_cpu(dev):
     """chip_smoke's cut demo scene (a 48 x 48 skirt, 3,000 sand held by
     live release windows, the body and the chair in contact, 64^3): 10
-    substeps launch K1, K2, K5, K3, K4 (the collider) and K8 once each
-    and match the CPU plain path (x 2e-5, v 1e-3)."""
+    substeps launch K1, K2, K5, K3, K4 (the collider), K8 and the release
+    windows once each and match the CPU plain path (x 2e-5, v 1e-3)."""
     s_k, st_k, m_k, in_k = chip_smoke.demo_cut_scene(dev, True)
     s_c, _, m_c, in_c = chip_smoke.demo_cut_scene("cpu", True)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -1473,7 +1473,7 @@ def test_demo_cut_scene_goes_through_the_kernels_and_matches_the_cpu(dev):
     out, _ = s_k.frame(a0, m_k, DT, 10, 0.0, **in_k)
     assert _build.launch_counts() == {
         "cloth_stress": 10, "p2g": 10, "grid_pipeline": 10, "g2p": 10,
-        "splat": 10, "sand_stress": 10}
+        "splat": 10, "sand_stress": 10, "windows": 10}
     ref, _ = s_c.frame(a0.to("cpu"), m_c, DT, 10, 0.0, **in_c)
     for name, atol in (("x", 2e-5), ("v", 1e-3)):
         err = float((getattr(out, name).cpu() - getattr(ref, name)).abs()

@@ -250,7 +250,9 @@ def test_p2g2p_spans_its_phases_and_counts_the_live_windows():
         children = [s.name for s in spans.values() if s.parent == i]
         assert children == list(PHASES)
     counters = profiling.snapshot()["counters"]
-    assert counters == {"windows.evaluated": 3 * n, "windows.live": 3 + 2}
+    # the CPU runs the plain loop: the fused launch applies none
+    assert counters == {"windows.evaluated": 3 * n, "windows.live": 3 + 2,
+                        "windows.fused": 0}
     # the host's intervals say what the step's device scalars say, at the
     # frame's float32 times
     cols = solver.colliders

@@ -20,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..core.types import _Tensors
+from ..utils import profiling
 from . import geometry
 from .sh import rgb2sh
 
@@ -94,26 +95,34 @@ def face_frames_from_verts(verts, faces) -> FaceFrames:
 # ----------------------------------------------------------------------
 # world-space views
 # ----------------------------------------------------------------------
+def bound_rows(table, binding):
+    """``table[binding]``: a per-face table's row for each slot (the
+    binding gathers), counted into ``binding.gathered_slots``."""
+    profiling.count("binding.gathered_slots", binding.shape[0])
+    return table[binding]
+
+
 def get_xyz(g: GaussianParams, frames: Optional[FaceFrames] = None):
     if frames is None:
         return g.xyz
-    om = frames.orien_mat[g.binding]
+    om = bound_rows(frames.orien_mat, g.binding)
     xyz = torch.sum(om * g.xyz[:, None, :], -1)
-    return xyz * frames.scaling[g.binding] + frames.center[g.binding]
+    return xyz * bound_rows(frames.scaling, g.binding) \
+        + bound_rows(frames.center, g.binding)
 
 
 def get_scaling(g: GaussianParams, frames: Optional[FaceFrames] = None):
     s = torch.exp(g.scaling)
     if frames is None:
         return s
-    return s * frames.scaling[g.binding]
+    return s * bound_rows(frames.scaling, g.binding)
 
 
 def get_rotation(g: GaussianParams, frames: Optional[FaceFrames] = None):
     q = geometry.quat_normalize(g.rotation)
     if frames is None:
         return q
-    fq = geometry.quat_normalize(frames.orien_quat[g.binding])
+    fq = geometry.quat_normalize(bound_rows(frames.orien_quat, g.binding))
     return geometry.quat_multiply(fq, q)
 
 

@@ -456,17 +456,22 @@ def rasterize(means3d, colors, opacities, cov3d, cam: CameraArrays, bg,
               chunk: int = 32, tile_capacity_lo: int = 0,
               hot_tiles: int = 0, work_cap: int = 0,
               mid_capacity: int = None, big_capacity: int = None,
-              tiers=None, stop_eps: float = 0.0):
+              tiers=None, stop_eps: float = 0.0, live=None):
     """Full splatting pass.
 
     ``means2d_offset`` (N,2), normally zeros, is added to the projected 2D
     means (differentiate a loss w.r.t. it for the view-space gradients of
     densification).  ``tile_capacity_lo``/``hot_tiles`` enable two-tier
-    compositing on the ``work_cap=0`` path.
+    compositing on the ``work_cap=0`` path.  ``live`` (N,) bool, when
+    given, leaves the other gaussians out of the tiles: they must have
+    opacity 0 (a capacity-padded set's dead slots), so that they add
+    nothing to any pixel and take no tile's capacity.
 
     Returns dict(render (nc,H,W), alpha (1,H,W), radii (N,), depth (N,),
     tile_counts (T,), big_overflow, work_overflow) as the JAX package does,
-    plus n_items, the phase-2 worklist length (0 without a worklist)."""
+    plus n_items, the phase-2 worklist length (0 without a worklist), and
+    tile_overflow, the instances past ``tile_capacity`` in their tile,
+    which no phase composites."""
     means2d, depth, conic, radius, in_frustum = project_gaussians(
         means3d, cov3d, cam, width, height)
     if means2d_offset is not None:
@@ -474,8 +479,9 @@ def rasterize(means3d, colors, opacities, cov3d, cam: CameraArrays, bg,
     tiles_x = (width + TILE - 1) // TILE
     tiles_y = (height + TILE - 1) // TILE
     num_tiles = tiles_x * tiles_y
+    binned = in_frustum if live is None else in_frustum & live
     tile_sorted, gauss_sorted, edges, big_overflow = _sorted_instances(
-        means2d, depth, radius, in_frustum, width, height,
+        means2d, depth, radius, binned, width, height,
         max_tiles_per_gauss, mid_capacity=mid_capacity,
         big_capacity=big_capacity, tiers=tiers)
     counts = edges[1:num_tiles + 1] - edges[:num_tiles]
@@ -497,4 +503,6 @@ def rasterize(means3d, colors, opacities, cov3d, cam: CameraArrays, bg,
     return {"render": img, "alpha": alpha, "radii": radius,
             "depth": depth, "tile_counts": counts,
             "big_overflow": big_overflow, "work_overflow": work_overflow,
-            "n_items": n_items}
+            "n_items": n_items,
+            "tile_overflow": torch.clamp_min(counts - tile_capacity,
+                                             0).sum()}

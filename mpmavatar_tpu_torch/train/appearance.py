@@ -27,6 +27,7 @@ from ..render import (camera_arrays, convert_sh_colors, grid_sample_bilinear,
                       rasterize, shadow_unet_apply)
 from ..render import gaussians as G
 from ..render.avatar_model import AvatarParams, MeshAvatar
+from ..utils import profiling
 from ..utils.losses import l1_loss, psnr, ssim
 
 SPLAT_FLOATS = ("xyz", "features_dc", "features_rest", "scaling",
@@ -73,7 +74,7 @@ def shaded_colors(avatar: MeshAvatar, params: AvatarParams, frames,
     shadow_map = shadow_unet_apply(params.shadow, ao_map[None])["shadow_map"]
     shadow = grid_sample_bilinear(
         shadow_map[0], avatar.tensor("uv_coord", xyz.device))   # (F, 1)
-    shadow_per_gauss = shadow[params.splats.binding]
+    shadow_per_gauss = G.bound_rows(shadow, params.splats.binding)
     colors = convert_sh_colors(G.get_features(params.splats), xyz,
                                cam_center, active_sh_degree)
     return shadow_per_gauss * colors, shadow_map
@@ -88,6 +89,10 @@ def render_avatar_frame(avatar: MeshAvatar, params: AvatarParams,
     ``verts``.
 
     ``cam`` is a host Camera or a (CameraArrays, width, height) triple.
+    Only the alive slots are binned: the capacity's dead slots (opacity
+    0) all bind face 0 and would fill that face's tiles, dropping the live
+    splats behind them.  The splatting pass runs in the span
+    ``appearance.raster``.
     Returns (rendering (3,H,W), the rasterizer's outputs dict)."""
     frames = avatar.frames_for_verts(verts)
     if isinstance(cam, tuple):
@@ -100,13 +105,14 @@ def render_avatar_frame(avatar: MeshAvatar, params: AvatarParams,
                               xyz, active_sh_degree)
     opacity = G.get_opacity(params.splats)[:, 0] * params.splats.alive
     cov3d = G.get_covariance(params.splats, frames)
-    out = rasterize(xyz, colors, opacity, cov3d, ca,
-                    torch.as_tensor(bg, dtype=torch.float32,
-                                    device=verts.device),
-                    width=width, height=height,
-                    means2d_offset=means2d_offset,
-                    tile_capacity=tile_capacity, work_cap=work_cap,
-                    chunk=chunk)
+    with profiling.span("appearance.raster"):
+        out = rasterize(xyz, colors, opacity, cov3d, ca,
+                        torch.as_tensor(bg, dtype=torch.float32,
+                                        device=verts.device),
+                        width=width, height=height,
+                        means2d_offset=means2d_offset,
+                        tile_capacity=tile_capacity, work_cap=work_cap,
+                        chunk=chunk, live=params.splats.alive)
     rendering = out["render"] * torch.exp(
         params.cam_m[camera_idx])[:, None, None] \
         + params.cam_c[camera_idx][:, None, None]
@@ -183,7 +189,8 @@ def frame_loss(avatar: MeshAvatar, weights: AppearanceLossWeights,
     aux = {"l1": ll1.detach(), "dssim": ds.detach(), "lpips": lp.detach(),
            "radii": out["radii"].detach(), "alpha": out["alpha"].detach(),
            "visible": visible, "big_overflow": out["big_overflow"],
-           "work_overflow": out["work_overflow"], "n_items": out["n_items"]}
+           "work_overflow": out["work_overflow"], "n_items": out["n_items"],
+           "tile_overflow": out["tile_overflow"]}
     return loss, aux
 
 
@@ -195,9 +202,11 @@ def float_leaf_grads(params: AvatarParams, loss_of_params_and_m2d, m2d0):
     for t in leaves.values():
         t.requires_grad_(True)
     m2d = m2d0.detach().requires_grad_(True)
-    loss, aux = loss_of_params_and_m2d(params, m2d)
-    grads = torch.autograd.grad(loss, [*leaves.values(), m2d],
-                                allow_unused=True)
+    with profiling.span("appearance.forward"):
+        loss, aux = loss_of_params_and_m2d(params, m2d)
+    with profiling.span("appearance.backward"):
+        grads = torch.autograd.grad(loss, [*leaves.values(), m2d],
+                                    allow_unused=True)
     grads = [torch.zeros_like(t) if gr is None else gr
              for t, gr in zip([*leaves.values(), m2d], grads)]
     return (loss.detach(), aux), dict(zip(leaves, grads[:-1])), grads[-1]
@@ -261,14 +270,19 @@ def make_train_step(avatar: MeshAvatar, opt, optimizer: torch.optim.Adam,
     """step(params, timestep, camera_idx, ca, gt_rgb, gt_msk, ao_map,
     width, height) -> (loss, aux): one optimization step, updating the
     parameters that ``optimizer`` holds in place (see
-    ``make_loss_and_grads`` for ``aux["vgrad"]`` and ``lpips_fn``)."""
+    ``make_loss_and_grads`` for ``aux["vgrad"]`` and ``lpips_fn``).  A
+    step is the span ``appearance.step`` around ``appearance.forward``,
+    ``appearance.backward`` (``float_leaf_grads``) and
+    ``appearance.adam``."""
     loss_and_grads = make_loss_and_grads(
         avatar, opt, active_sh_degree, white_bkgd, weights, tile_capacity,
         work_cap, chunk, lpips_fn)
 
     def train_step(params: AvatarParams, *args):
-        loss, aux, grads = loss_and_grads(params, *args)
-        apply_updates_float(optimizer, params, grads)
+        with profiling.span("appearance.step"):
+            loss, aux, grads = loss_and_grads(params, *args)
+            with profiling.span("appearance.adam"):
+                apply_updates_float(optimizer, params, grads)
         return loss, aux
 
     return train_step

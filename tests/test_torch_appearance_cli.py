@@ -6,7 +6,11 @@ generator at a cut size, the material CLI's ``--run_eval`` and the
 metrics CLI (train/eval_metrics.py) against scripts/eval.py.
 
 The toy capture is tests/test_torch_data.py's (the 5 x 5 tracked cloth of
-tests/test_train.py under three 32 x 24 cameras aimed at it).
+tests/test_train.py under three 32 x 24 cameras aimed at it).  Both CLIs
+run with a tile capacity that holds every instance: the capacity's 96
+dead slots bind face 0, which the JAX package bins and the port does not,
+so at a capacity that face 0's tile overflows the JAX package drops the
+live splats behind them.
 
 Tolerances, as tests/test_torch_train_appearance.py holds a train step:
 the iteration-0 loss within 1e-5 and its L1 within 1e-6 (before any
@@ -101,7 +105,7 @@ def _flags(root, model_path, iterations=ITERS, extra=()):
             str(model_path), "--test_camera_index", "2",
             "--train_frame_start_num", "0", "2", "--test_frame_start_num",
             "0", "2", "--iterations", str(iterations), "--tile_capacity",
-            "64", *extra]
+            "256", *extra]
 
 
 def _run_port(argv):

@@ -330,3 +330,63 @@ def test_tracing_leaves_the_substep_unchanged(traced):
     with profiling.enable() if traced else profiling.span("off"):
         out, _ = solver.frame(state, model, DT, 3, 0.0)
     assert torch.equal(out.x, ref.x) and torch.equal(out.v, ref.v)
+
+
+# ----------------------------------------------------------------------
+# the stage-2 step
+# ----------------------------------------------------------------------
+def _appearance_step():
+    """One stage-2 step at bench_appearance's cut size, LPIPS off: the
+    step function and its arguments."""
+    from mpmavatar_tpu_torch.data import OptimizationParams
+    from mpmavatar_tpu_torch.train import appearance, bench_appearance
+    avatar, params, _, cam, gt_rgb, gt_msk, ao = bench_appearance.build(
+        "cpu", 48, 32, (10, 9))
+    opt = OptimizationParams()
+    step = appearance.make_train_step(
+        avatar, opt, appearance.make_optimizer(opt, 1.0, params), 3, False,
+        tile_capacity=512, work_cap=32, chunk=32)
+    return step, (params, 0, 0, cam[0], gt_rgb, gt_msk, ao, cam[1], cam[2])
+
+
+def test_an_appearance_step_spans_its_phases_and_counts_the_gathers():
+    step, args = _appearance_step()
+    with profiling.enable():
+        step(*args)
+        step(*args)
+    spans = profiling.spans()
+    by = _by_name(spans.values())
+    steps = [i for i, s in spans.items() if s.name == "appearance.step"]
+    assert len(steps) == 2
+    for i in steps:
+        # one a step, its children in order; the rasterizer inside the
+        # forward
+        assert [s.name for s in spans.values() if s.parent == i] == [
+            "appearance.forward", "appearance.backward", "appearance.adam"]
+    forwards = {i for i, s in spans.items() if s.name == "appearance.forward"}
+    assert len(by["appearance.raster"]) == 2
+    assert all(s.parent in forwards for s in by["appearance.raster"])
+    snap = profiling.snapshot()
+    assert snap["spans"]["appearance.step"]["count"] == 2
+    # six per-face tables gathered a step (orientation, scale twice,
+    # centre, quaternion, shadow), each over every slot
+    slots = args[0].splats.capacity
+    assert snap["counters"]["binding.gathered_slots"] == 2 * 6 * slots
+
+
+def test_appearance_spans_cost_nothing_with_tracing_off(monkeypatch):
+    step, args = _appearance_step()
+    with profiling.enable():
+        profiling.count("before")
+    before = profiling.snapshot()
+
+    def forbidden(*a, **k):
+        raise AssertionError("tracing off touched the clock or the "
+                             "profiler")
+
+    monkeypatch.setattr(profiling, "_clock", forbidden)
+    monkeypatch.setattr(profiling, "_range", forbidden)
+    step(*args)
+    assert profiling.span("appearance.step") is profiling._OFF
+    assert profiling.snapshot()["spans"] == before["spans"]
+    assert profiling.snapshot()["counters"] == before["counters"]

@@ -274,6 +274,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -612,24 +613,35 @@ def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return event_ms(graph.replay, reps, 2, warmup=2) / inner
 
 
-def profile_device(fn):
+def profile_device(fn, warm=None):
     """torch.profiler over one call of ``fn``: (device-busy seconds,
     profiled wall seconds, [(kernel name, device us, launches)] by device
     time).  Only the device-side kernel and copy entries are summed: an
     operator's entry repeats the time of the kernels it launched, and so
     does a user annotation's range on the device (the optimizer's
     ``Optimizer.step#Adam.step``), which also has a host-side entry of
-    its name."""
+    its name.  With ``warm``, the profiler first traces one call of it
+    and discards that (its schedule's warm-up step), so that no record of
+    ``fn``'s first kernels goes missing, as some did in phase 12 (2 to 4
+    of the port's kernels in the first of 20 substeps)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    steps = None if warm is None else schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=steps) as prof:
+        if warm is not None:
+            warm()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if warm is not None:
+            prof.step()
     averages = prof.key_averages()
     host_keys = {e.key for e in averages if e.device_type != DeviceType.CUDA}
     rows = []
@@ -644,6 +656,41 @@ def profile_device(fn):
             rows.append((e.key, float(us), int(e.count)))
     rows.sort(key=lambda r: -r[1])
     return sum(r[1] for r in rows) * 1e-6, wall, rows
+
+
+# the port's simulation kernels by their names in a device trace, to the
+# names ops/_build.py counts their launches under
+TRACE_KERNELS = {"cloth_stress_kernel": "cloth_stress",
+                 "sand_kernel": "sand_stress", "p2g_kernel": "p2g",
+                 "grid_pipeline_kernel": "grid_pipeline",
+                 "g2p_kernel": "g2p", "splat_kernel": "splat",
+                 "splat_direct_kernel": "splat", "windows_kernel": "windows"}
+
+
+def traced_launches(rows) -> dict:
+    """The calls of the port's simulation kernels in ``profile_device``'s
+    rows, by launch-count name: what the device ran, which a replayed CUDA
+    graph's launch counts (the capture's, once per replay) cannot show."""
+    out = {}
+    for key, _, calls in rows:
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
+        name = TRACE_KERNELS.get(m.group(1)) if m else None
+        if name is not None:
+            out[name] = out.get(name, 0) + calls
+    return out
+
+
+def check_traced(name, rows, per_sub, n) -> dict:
+    """Raise unless the device trace ``rows`` of ``n`` substeps ran each
+    kernel of ``per_sub`` (name -> launches per substep) that many times
+    and no other of the port's simulation kernels; returns its counts."""
+    traced = traced_launches(rows)
+    want = {k: per * n for k, per in per_sub.items()}
+    print(f"{name}: the device trace of {n} substeps ran {traced}")
+    if traced != want:
+        raise AssertionError(f"{name}: the device trace of {n} substeps "
+                             f"ran {traced}, expected {want}")
+    return traced
 
 
 def rel_err(outs, refs):
@@ -983,9 +1030,14 @@ def drive(name, solver, state, model, scene, frames, substeps, expect,
     many times and no other kernel at all; the state must be finite after
     each frame.  ``scene`` is the frame inputs, or a function of the frame
     index that gives them.  Then a profile of PROFILE_SUBSTEPS more (with
-    the last frame's inputs), whose device busy ms, kernels per substep and
-    idle share go into ``stats`` when given.  Returns (final state, time,
-    launches, steady ms/substep)."""
+    the last frame's inputs: replays of the graph the frames captured;
+    a one-substep frame as the profiler's discarded warm-up),
+    in whose device trace each kernel of ``expect`` must have run that
+    many times a substep (``check_traced``: on the graph route the
+    counters add the capture's launches once per replay), and whose
+    device busy ms, kernels per substep and idle share go into ``stats``
+    when given.  Returns (final state, time, the trace's launches over
+    PROFILE_SUBSTEPS substeps, steady ms/substep)."""
     import torch
     from mpmavatar_tpu_torch.ops import _build
     inputs = scene if callable(scene) else (lambda f: scene)
@@ -1010,11 +1062,14 @@ def drive(name, solver, state, model, scene, frames, substeps, expect,
 
     busy_s, prof_wall, rows = profile_device(
         lambda: solver.frame(state, model, DT, PROFILE_SUBSTEPS, t,
-                             **inputs(frames - 1)))
+                             **inputs(frames - 1)),
+        warm=lambda: solver.frame(state, model, DT, 1, t,
+                                  **inputs(frames - 1)))
     n = PROFILE_SUBSTEPS
     table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
                       for key, us, calls in rows)
     (OUT / f"chip_smoke_profile_{name}.txt").write_text(table + "\n")
+    traced = check_traced(name, rows, expect, n)
     if not rows:
         print(f"{name} profile: the profiler recorded no device time; "
               "device busy share not measured")
@@ -1033,7 +1088,7 @@ def drive(name, solver, state, model, scene, frames, substeps, expect,
     for key, us, calls in rows[:12]:
         print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
               f"{key[:90]}")
-    return state, t, launches, ms_sub
+    return state, t, traced, ms_sub
 
 
 def mesh_branch_cells(solver, state, model, scene, t) -> tuple:
@@ -2775,7 +2830,8 @@ def demo_path(dev, smi, kchecks, per_sub) -> tuple:
     """Phase 12, the zero-shot demo, in a git-ignored directory removed
     afterwards.  ``kchecks`` holds phase 4's K2, K4 and K8 checks and the
     release windows' kernel check.
-    Returns (steady ms per substep, the run's launches)."""
+    Returns (steady ms per substep, the launches in the device trace of
+    its PROFILE_SUBSTEPS profiled substeps)."""
     import shutil
     work = REPO / "output" / "chip_smoke_demo"
     shutil.rmtree(work, ignore_errors=True)
@@ -3137,12 +3193,18 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
           f"{[round(x, 2) for x in frame_ms]} ms at 1024^2 "
           f"({len(orbit)} frames, no overflow)")
 
-    # (g) a profile of PROFILE_SUBSTEPS more substeps
+    # (g) a profile of PROFILE_SUBSTEPS more substeps, checked against
+    # the launches per substep in its device trace: replays of the graph
+    # that the profiler's warm-up frame captures (setting the collider
+    # set above dropped the graph)
     n = PROFILE_SUBSTEPS
     busy_s, prof_wall, rows = profile_device(
-        lambda: solver.frame(state, model, dt, n, t_end, **res["inputs"]))
+        lambda: solver.frame(state, model, dt, n, t_end, **res["inputs"]),
+        warm=lambda: solver.frame(state, model, dt, 1, t_end,
+                                  **res["inputs"]))
     (OUT / "chip_smoke_profile_demo.txt").write_text("\n".join(
         f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
+    traced = check_traced("demo", rows, per_sub, n)
     if rows:
         idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
         kernels = sum(r[2] for r in rows) / n
@@ -3159,7 +3221,7 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
         print("demo profile: the profiler recorded no device time; busy "
               "share not measured")
     print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {smi}")
-    return ms_sub, launches
+    return ms_sub, traced
 
 
 def tracking_path(dev, smi, cap, work, check) -> tuple:
@@ -4714,8 +4776,8 @@ def main() -> int:
     g2p_check("g2p (the cloth drop's particles in a random order)",
               st.x[perm], k5, GRID, cfg.inv_dx, launches_a)
     g2p_check(f"g2p (path B, {GRID_B}^3, one more substep's inputs)",
-              *g2p_inputs(lambda: solver_b.frame(state_b, model_b, DT, 1,
-                                                 t_b, **scene_b)),
+              *g2p_inputs(lambda: solver_b.substep(state_b, model_b, DT,
+                                                   t_b, **scene_b)),
               GRID_B, cfg_b.inv_dx, launches_b)
 
     # K8: path B's sand after its run, and a tip / cone / reflected set
@@ -5048,6 +5110,8 @@ def main() -> int:
           f"{bench_work_ms:.4f} (worklist) ms/iteration on {smi}; "
           f"chip_smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after start-up")
+    # the graphed paths (cloth drop, A, B, posed body, demo) give the
+    # launches of their PROFILE_SUBSTEPS profiled substeps' device trace
     for entry in results.values():
         entry["launches_by_path"] = {
             "cloth_drop": launches.get(entry["name"], 0),

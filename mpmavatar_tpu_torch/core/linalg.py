@@ -147,8 +147,8 @@ def svd3(f, sweeps: int = 8):
     u1_raw = fv[..., :, 1] - torch.sum(fv[..., :, 1] * u0, dim=-1,
                                        keepdim=True) * u0
     u1_norm = safe_norm(u1_raw, keepdim=True)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=f.dtype, device=f.device)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=f.dtype, device=f.device)
+    # made on the device (a copy from the host cannot be graph-captured)
+    ex, ey = torch.eye(3, dtype=f.dtype, device=f.device)[:2]
     alt = cross(u0, torch.where(torch.abs(u0[..., :1]) < 0.9, ex, ey))
     alt = alt / torch.clamp_min(safe_norm(alt, keepdim=True), _EPS)
     u1 = torch.where(u1_norm > 1e-6,

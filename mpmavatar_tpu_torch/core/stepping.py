@@ -406,20 +406,27 @@ def g2p(cfg: MPMStaticConfig, state: MPMState, model: MPMModel, grid_v_out,
     return x1, v1, c1, f_trial, d_out
 
 
-def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
-                      time: float):
-    """Particle impulses and velocity modifiers, in registration order:
-    ``ops/windows.py``'s one launch on CUDA, its plain loop on the CPU,
-    ``state.v`` itself with no window.  Traced, it counts the windows
-    looked at, those whose interval holds ``time`` (from the host's copy
-    of each interval) and those the fused launch applied (0 on the CPU)."""
+def count_windows(colliders: ColliderSet, time: float, fused: bool):
+    """Traced, count a substep's windows: those looked at, those whose
+    interval holds ``time`` (from the host's copy of each interval) and
+    those a fused launch applied (``fused``; 0 for the CPU's loop)."""
     if profiling.on():
         windows = colliders.impulses + colliders.velocity_modifiers
         profiling.count("windows.evaluated", len(windows))
         profiling.count("windows.live",
                         sum(w.live_at(time) for w in windows))
-        profiling.count("windows.fused",
-                        len(windows) if state.v.is_cuda else 0)
+        profiling.count("windows.fused", len(windows) if fused else 0)
+
+
+def _pre_p2g_velocity(colliders: ColliderSet, state: MPMState, dt: float,
+                      time):
+    """Particle impulses and velocity modifiers, in registration order:
+    ``ops/windows.py``'s one launch on CUDA, its plain loop on the CPU,
+    ``state.v`` itself with no window.  It counts the windows
+    (``count_windows``) at a host ``time``; a device time is a captured
+    substep's clock, and its replays count them."""
+    if not isinstance(time, torch.Tensor):
+        count_windows(colliders, time, state.v.is_cuda)
     return _windows.apply_windows(colliders, state.v, state.x, state.mass,
                                   dt, time)
 
@@ -486,10 +493,12 @@ def make_grid_stage(cfg: MPMStaticConfig, colliders: ColliderSet):
 
 
 def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
-          model: MPMModel, dt: float, time: float, mesh_x=None, mesh_v=None,
+          model: MPMModel, dt: float, time, mesh_x=None, mesh_v=None,
           joint_verts_v=None, joint_faces_v=None, joint_traditional_v=None,
           grid_stage=None) -> MPMState:
-    """One full MPM substep; ``dt`` and ``time`` are Python floats.
+    """One full MPM substep; ``dt`` is a Python float, ``time`` a Python
+    float or, in a captured substep (``sim/substep_graph.py``), a float32
+    0-d tensor on the state's device that the kernels read when they run.
     ``mesh_x``/``mesh_v`` (Vb, 3) are the body-mesh collider's vertices
     this substep; the ``joint_*_v`` are the mover's prescribed velocities
     of the joint vertices, faces and traditional particles.
@@ -497,7 +506,9 @@ def p2g2p(cfg: MPMStaticConfig, colliders: ColliderSet, state: MPMState,
     the caller has none."""
     if grid_stage is None:
         grid_stage = make_grid_stage(cfg, colliders)
-    dt, time = float(dt), float(time)
+    dt = float(dt)
+    if not isinstance(time, torch.Tensor):
+        time = float(time)
     with profiling.span("substep"):
         with profiling.span("substep.windows"):
             state = dataclasses.replace(

@@ -10,11 +10,15 @@ compiled or loaded when a module is imported.
 
 Every launch goes through :func:`launch`, which raises on a nonzero
 ``cudaGetLastError()`` right after the launch and counts the launch per
-kernel, so a run can show which kernels its main path went through.
+kernel, so a run can show which kernels its main path went through.  A
+CUDA graph's capture launches nothing: its calls are counted apart
+(:func:`counted_apart`), and each replay adds them
+(:func:`add_launch_counts`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -126,13 +130,13 @@ _SIGNATURES = {
     "launch_cloth_stress": [_P] * 12 + [_I, _P],
     "launch_p2g": [_P] * 7 + [_I, _I, _I, _F, _F, _P, _P, _P, _P],
     "launch_g2p": [_P, _P, _I, _I, _F, _P, _P, _P, _P, _P],
-    "launch_grid_pipeline": [_P] * 10 + [_F, _F, _I, _I, _I, _F, _I, _I,
-                                         _I, _I, _I, _I, _P, _P],
+    "launch_grid_pipeline": [_P] * 10 + [_F, _F, _P, _I, _I, _I, _F, _I,
+                                         _I, _I, _I, _I, _I, _P, _P],
     "launch_splat": [_P, _P, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P],
     "launch_sand": [_P] * 6 + [_I] + [_P] * 4,
     "launch_composite": [_P, _P, _P, _I, _I, _I, _L, _P, _P],
     "launch_composite_bwd": [_P, _P, _P, _P, _I, _I, _I, _L, _P, _P],
-    "launch_windows": [_P] * 5 + [_I, _I, _I, _F, _F, _P, _P],
+    "launch_windows": [_P] * 5 + [_I, _I, _I, _F, _F, _P, _P, _P],
     "cloth_stress_info": [_IP],
     "sand_stress_info": [_IP],
     "p2g_info": [_IP],
@@ -174,6 +178,25 @@ def reset_launch_counts() -> None:
     _counts.clear()
 
 
+@contextlib.contextmanager
+def counted_apart():
+    """Count the block's launches into the dict it yields, not into the
+    running counts (a graph's capture, which runs no kernel)."""
+    global _counts
+    outer, _counts = _counts, {}
+    try:
+        yield _counts
+    finally:
+        _counts = outer
+
+
+def add_launch_counts(counts: dict, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (kernel -> launches) to the running
+    counts: the launches of a captured graph's replays."""
+    for kernel, n in counts.items():
+        _counts[kernel] = _counts.get(kernel, 0) + n * times
+
+
 def launch_counts() -> dict:
     return dict(_counts)
 
@@ -209,6 +232,15 @@ def check_cuda(name: str, t, dtype=None):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     return t.contiguous()
+
+
+def time_arg(time) -> tuple:
+    """A kernel's time arguments (by value, pointer) from a Python float
+    (the pointer NULL) or a float32 0-d CUDA tensor, which the kernel
+    reads when it runs (a captured substep's clock)."""
+    if isinstance(time, torch.Tensor):
+        return 0.0, check_cuda("time", time).data_ptr()
+    return float(time), None
 
 
 def check_branch_counts(kernel: str, branch_counts) -> None:

@@ -22,6 +22,8 @@
 // The launch covers n_cells cells from flat cell cell0 on (the whole grid
 // from 0, or a rank's slab of it): every array is indexed by the cell's
 // row, the coordinates come from its flat index cell0 + row.
+// The time comes by value, or from a float32 device scalar where time_p is
+// not null (a captured substep, whose clock advances on the device).
 
 #include <cuda_runtime.h>
 
@@ -35,11 +37,13 @@ __global__ void grid_pipeline_kernel(
     const float* __restrict__ mover_v, const float* __restrict__ mover_w,
     const float* __restrict__ gravity, const float* __restrict__ damping_p,
     const float* __restrict__ mesh_friction, const float* __restrict__ surf,
-    float time, float dt, int cell0, int n_cells,
-    int G, float cell_size, int has_mesh, int has_mover, int n_surf,
-    int surf_types, int has_bbox, int bbox_pad, float* __restrict__ out) {
+    float time_v, float dt, const float* __restrict__ time_p, int cell0,
+    int n_cells, int G, float cell_size, int has_mesh, int has_mover,
+    int n_surf, int surf_types, int has_bbox, int bbox_pad,
+    float* __restrict__ out) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= n_cells) return;
+  const float time = time_p != nullptr ? *time_p : time_v;
   const int flat = cell0 + cell;
   const int gi[3] = {flat / (G * G), (flat / G) % G, flat % G};
   const float damping = *damping_p;
@@ -121,15 +125,16 @@ extern "C" int launch_grid_pipeline(
     const float* gv, const float* gm, const float* mesh_acc,
     const float* mesh_w, const float* mover_v, const float* mover_w,
     const float* gravity, const float* damping, const float* mesh_friction,
-    const float* surf, float time, float dt, int cell0, int n_cells, int G,
-    float cell_size, int has_mesh, int has_mover, int n_surf,
-    int surf_types, int has_bbox, int bbox_pad, float* out, void* stream) {
+    const float* surf, float time, float dt, const float* time_p, int cell0,
+    int n_cells, int G, float cell_size, int has_mesh, int has_mover,
+    int n_surf, int surf_types, int has_bbox, int bbox_pad, float* out,
+    void* stream) {
   const int threads = 256;
   const int blocks = (n_cells + threads - 1) / threads;
   grid_pipeline_kernel<<<blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       gv, gm, mesh_acc, mesh_w, mover_v, mover_w, gravity, damping,
-      mesh_friction, surf, time, dt, cell0, n_cells,
+      mesh_friction, surf, time, dt, time_p, cell0, n_cells,
       G, cell_size, has_mesh, has_mover, n_surf, surf_types, has_bbox,
       bbox_pad, out);
   return static_cast<int>(cudaGetLastError());

@@ -35,6 +35,8 @@
 // words (stored word-major, (n_words, n): coalesced) with the live words
 // and walks the set bits, so a dead window costs one compare per block.
 // The output is a new v: the state stays functional for remat and autograd.
+// The time comes by value, or from a float32 device scalar where t_p is not
+// null (a captured substep, whose clock advances on the device).
 
 #include <cuda_runtime.h>
 
@@ -89,9 +91,10 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ mass,
                    const unsigned* __restrict__ member,
                    const float* __restrict__ table, int n_windows,
-                   int n_words, int n, float t, float dt,
-                   float* __restrict__ out) {
+                   int n_words, int n, float t_v, float dt,
+                   const float* __restrict__ t_p, float* __restrict__ out) {
   extern __shared__ float rows[];   // n_windows rows, then n_words words
+  const float t = t_p != nullptr ? *t_p : t_v;
   unsigned* live = reinterpret_cast<unsigned*>(rows + n_windows * kRow);
   for (int i = threadIdx.x; i < n_windows * kRow; i += kThreads)
     rows[i] = table[i];
@@ -151,14 +154,14 @@ size_t shared_bytes(int n_windows) {
 extern "C" int launch_windows(const float* v, const float* x,
                               const float* mass, const unsigned* member,
                               const float* table, int n_windows, int n_words,
-                              int n, float t, float dt, float* out,
-                              void* stream) {
+                              int n, float t, float dt, const float* t_p,
+                              float* out, void* stream) {
   if (n_windows > kMaxWindows || n_words != (n_windows + 31) / 32)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
   windows_kernel<<<blocks, kThreads, shared_bytes(n_windows),
                    static_cast<cudaStream_t>(stream)>>>(
-      v, x, mass, member, table, n_windows, n_words, n, t, dt, out);
+      v, x, mass, member, table, n_windows, n_words, n, t, dt, t_p, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -70,7 +70,9 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
     from ``pack_surface_params``.  Under grad, the grid, the mesh and mover
     fields, gravity, damping, mesh_friction and surf_params are
     differentiable (JAX differentiates its scalar vector, surfaces
-    included); time and dt are Python floats."""
+    included); dt is a Python float, and time a Python float or a float32
+    0-d tensor on the grid's device, which the kernel reads when it runs
+    (a captured substep's clock)."""
     if not supported_bcs(grid_post):
         raise ValueError("grid pipeline: unsupported grid BC in grid_post")
     surfaces = tuple(int(col.surface_type) for col in grid_post
@@ -105,9 +107,11 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
         gravity, damping = as_t(gravity).reshape(3), as_t(damping).reshape(())
         mesh_friction = as_t(mesh_friction).reshape(()) if has_mesh else None
         surf = as_t(surf_params) if surfaces else None
+        if not isinstance(time, torch.Tensor):
+            time = float(time)
         args = (grid_v_in, grid_m, mesh_acc, mesh_w, mover_v, mover_w,
-                gravity, damping, mesh_friction, surf, float(time),
-                float(dt), int(cell_start))
+                gravity, damping, mesh_friction, surf, time, float(dt),
+                int(cell_start))
         if not grid_v_in.is_cuda:
             return plain(*args)
         return _autograd.call("grid_pipeline", launch, plain, *args)
@@ -127,9 +131,10 @@ def make_grid_pipeline(cfg: MPMStaticConfig, grid_post, has_mesh: bool,
                                ("gravity", gravity), ("damping", damping),
                                ("mesh_friction", mesh_friction),
                                ("surf_params", surf))]
+        time, time_p = _build.time_arg(time)
         out = torch.empty((n, 3), dtype=dtype, device=dev)
         _build.launch(KERNEL, "launch_grid_pipeline",
-                      *[_build.ptr(t) for t in ins], time, dt,
+                      *[_build.ptr(t) for t in ins], time, dt, time_p,
                       cell_start, n, G, cell_size, int(has_mesh), int(has_mover),
                       len(surfaces), types, int(has_bbox), bbox_pad,
                       out.data_ptr(), _build.stream(dev))

@@ -119,8 +119,10 @@ def window_pack(colliders) -> WindowPack:
 def apply_windows(colliders, v, x, mass, dt: float, time: float):
     """The new particle velocities (P, 3) after every window of
     ``colliders`` that holds ``time``, in registration order (impulses,
-    then velocity modifiers).  ``dt`` and ``time`` are Python floats; the
-    window test is ``start <= time < end`` in float32.
+    then velocity modifiers).  ``dt`` is a Python float, ``time`` a Python
+    float or a float32 0-d tensor on ``v``'s device, which the kernel reads
+    when it runs (a captured substep's clock); the window test is ``start
+    <= time < end`` in float32.
 
     On CUDA tensors this launches the kernel (or raises); it runs the
     plain version only for CPU tensors."""
@@ -145,12 +147,14 @@ def _launch_windows(colliders, v, x, mass, dt, time):
             x is not None and x.shape != (n, 3)) or (
             mass is not None and mass.shape != (n,)):
         raise ValueError("windows: inconsistent particle shapes")
+    time, time_p = _build.time_arg(time)
     out = torch.empty_like(v)
     if n:
         _build.launch(KERNEL, "launch_windows", v.data_ptr(), _build.ptr(x),
                       _build.ptr(mass), pack.words.data_ptr(),
                       pack.table.data_ptr(), n_windows, pack.words.shape[0],
-                      n, time, dt, out.data_ptr(), _build.stream(v.device))
+                      n, time, dt, time_p, out.data_ptr(),
+                      _build.stream(v.device))
     return out
 
 

@@ -30,6 +30,7 @@ from ..core.colliders import (BoundingBoxCollider, ColliderSet,
 from ..core.types import (MPMModel, MPMState, MPMStaticConfig,
                           finalize_mu_lam)
 from ..utils import profiling
+from . import substep_graph
 
 MATERIAL_IDS = {
     "jelly": 0, "metal": 1, "sand": 2, "foam": 3, "snow": 4,
@@ -71,6 +72,7 @@ class MPMSolver:
     def colliders(self, value: ColliderSet):
         self._colliders = value
         self._grid_stage = None
+        self._graph = None      # frame's captured substep, if any
 
     def _replace(self, **kw):
         self.colliders = dataclasses.replace(self.colliders, **kw)
@@ -230,8 +232,20 @@ class MPMSolver:
         ``torch.utils.checkpoint``, as the JAX frame checkpoints its
         scanned body: the backward keeps only each substep's input state
         and recomputes the substep (its kernels launch again) when it
-        needs the rest.  The forward is the same computation.  Traced, the
-        span ``frame``'s self time is the glue around the substeps."""
+        needs the rest.  The forward is the same computation.
+
+        On CUDA, with ``remat`` off and nothing to differentiate
+        (``sim/substep_graph.py::graphable``), each substep replays one
+        captured CUDA graph of ``p2g2p``, the same kernels in the same
+        order; the graph is kept on the solver and captured again when
+        what it baked in changes (``graph_key``), after that frame's first
+        substep runs eagerly.  The returned tensors are the frame's own,
+        never the graph's buffers.
+
+        Traced, the span ``frame``'s self time is the glue around the
+        substeps; each replay is a ``substep`` span without the phases'
+        spans, and counts one ``substep.graphed`` and the release windows
+        (``SubstepGraph.run``); the capture records nothing."""
         with profiling.span("frame"):
             t = np.float32(time0)
             dt32 = np.float32(dt)
@@ -241,6 +255,11 @@ class MPMSolver:
             mesh_x, mesh_v = as_dev(mesh_x), as_dev(mesh_v)
             joints = dict(joint_verts_v=as_dev(joint_verts_v),
                           joint_faces_v=as_dev(joint_faces_v))
+            inputs = (mesh_x, mesh_v, *joints.values())
+
+            def mesh_at(s):
+                return None if mesh_x is None else \
+                    mesh_x + float(np.float32(s) * dt32) * mesh_v
 
             def substep(state, mx, time):
                 return stepping.p2g2p(self.cfg, self.colliders, state, model,
@@ -248,9 +267,26 @@ class MPMSolver:
                                       mesh_v=mesh_v, grid_stage=grid_stage,
                                       **joints)
 
+            if num_substeps and substep_graph.graphable(state, model, inputs,
+                                                        remat):
+                key = substep_graph.graph_key(self.cfg, self.colliders,
+                                              state, model, dt32, inputs)
+                s = 0
+                if self._graph is None or self._graph.key != key:
+                    self._graph = None      # its memory goes first
+                    # a capture needs one eager run: the frame's first
+                    state = substep(state, mesh_at(0), float(t))
+                    t, s = np.float32(t + dt32), 1
+                    self._graph = substep_graph.SubstepGraph(
+                        key, self.cfg, self.colliders, grid_stage, model,
+                        state, float(dt32), inputs)
+                self._graph.load(state, inputs, t, s)
+                t = self._graph.run(num_substeps - s, t)
+                return self._graph.output(state), float(t)
+
+            profiling.count("substep.graphed", 0)
             for s in range(num_substeps):
-                mx = None if mesh_x is None else \
-                    mesh_x + float(np.float32(s) * dt32) * mesh_v
+                mx = mesh_at(s)
                 if remat:
                     # the substep draws no random numbers: no RNG state to
                     # keep

@@ -2,8 +2,14 @@
 
 ``span(name)`` marks a phase where the work happens (a substep's stress
 or grid stage, the material step's backward, a twin's backward);
-``count(name, n)`` adds to a named counter.  Tracing is on while
-``enable()`` holds and while a ``torch.profiler`` records.  Off, the
+``count(name, n)`` adds to a named counter.  The port's counters:
+``windows.evaluated``, ``windows.live`` and ``windows.fused`` (a
+substep's release windows, ``core/stepping.py::count_windows``),
+``substep.graphed`` (``sim/substep_graph.py::SubstepGraph.run``: one
+for each substep replayed from a captured CUDA graph, none for an eager
+one) and ``binding.gathered_slots`` (``render/gaussians.py::bound_rows``).
+Tracing is on while ``enable()`` holds and while a ``torch.profiler``
+records, except inside ``paused()`` (a graph's capture).  Off, the
 default, ``span`` makes one check and hands back one shared no-op
 object (no ``record_function``, no clock, no allocation) and ``count``
 returns at once.
@@ -85,6 +91,7 @@ _OFF = _Off()
 _local = threading.local()      # .stack: the thread's open spans
 _lock = threading.Lock()
 _enabled = 0                    # depth of enable()
+_paused = 0                     # depth of paused()
 _on = False                     # tracing was on at the last check
 _session: _Session | None = None
 
@@ -159,7 +166,7 @@ def span(name: str):
     global _on
     prof = _profiling()
     if prof or _enabled:
-        return _Span(name, _session_on(), prof)
+        return _OFF if _paused else _Span(name, _session_on(), prof)
     _on = False
     return _OFF
 
@@ -169,6 +176,8 @@ def count(name: str, n: int = 1) -> None:
     global _on
     if not (_enabled or _profiling()):
         _on = False
+        return
+    if _paused:
         return
     s = _session_on()
     with s.lock:
@@ -180,7 +189,7 @@ def on() -> bool:
     first."""
     global _on
     if _enabled or _profiling():
-        return True
+        return not _paused
     _on = False
     return False
 
@@ -201,6 +210,21 @@ def enable():
             _enabled -= 1
             if not _enabled and not _profiling():
                 _on = False
+
+
+@contextlib.contextmanager
+def paused():
+    """No span or count on any thread in the block, and the session kept,
+    whether tracing is on or off: a CUDA graph's capture, which runs no
+    work (its replays do, and record their own spans and counts)."""
+    global _paused
+    with _lock:
+        _paused += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _paused -= 1
 
 
 def snapshot() -> dict:

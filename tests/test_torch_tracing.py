@@ -116,6 +116,24 @@ def test_parents_are_per_thread():
     assert agg["main"]["self_ns"] == agg["main"]["total_ns"]
 
 
+def test_paused_records_no_span_or_count_and_keeps_the_session():
+    """Inside ``paused()`` (a graph's capture) tracing reads as off and
+    records nothing; around it the same session goes on."""
+    with profiling.enable():
+        _sleep_span("before", 0.0)
+        with profiling.paused():
+            assert not profiling.on()
+            with profiling.span("captured"):
+                profiling.count("captured")
+        profiling.count("after")
+        _sleep_span("before", 0.0)
+        assert profiling.on()
+    snap = profiling.snapshot()
+    assert snap["spans"].keys() == {"before"}
+    assert snap["spans"]["before"]["count"] == 2
+    assert snap["counters"] == {"after": 1}
+
+
 def test_counters_and_reset_clear_spans_counters_and_launches(monkeypatch):
     monkeypatch.setattr(_build, "_counts", {})
     with profiling.enable():
@@ -250,9 +268,10 @@ def test_p2g2p_spans_its_phases_and_counts_the_live_windows():
         children = [s.name for s in spans.values() if s.parent == i]
         assert children == list(PHASES)
     counters = profiling.snapshot()["counters"]
-    # the CPU runs the plain loop: the fused launch applies none
+    # the CPU runs the plain loop: the fused launch applies none, and
+    # its substeps are eager: none replayed from a graph
     assert counters == {"windows.evaluated": 3 * n, "windows.live": 3 + 2,
-                        "windows.fused": 0}
+                        "windows.fused": 0, "substep.graphed": 0}
     # the host's intervals say what the step's device scalars say, at the
     # frame's float32 times
     cols = solver.colliders

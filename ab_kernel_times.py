@@ -8,7 +8,7 @@ card.
 TREE (default: this script's directory) is a checkout whose
 ``mpmavatar_tpu_torch`` is built and timed.  The shapes, the seeded inputs
 and the timing (``graph_ms``) are this script's and this directory's
-``chip_smoke.py``'s, whatever the tree; the K1, K3 and K8 group calls no
+``chip_fixtures.py``'s, whatever the tree; the K1, K3 and K8 group calls no
 API that the tree before their redesigns lacks, and the K4 group none that
 the tree before K4's redesign (with the posed body) lacks.  So a parent
 unpacked with ``git archive`` under the git-ignored ``scratch/`` and the
@@ -19,12 +19,12 @@ working tree can be timed in turns in one call:
 
 K1 at the cloth drop's shape; K3 at the cloth drop's particle order, a
 random permutation of it and path B's initial state, on seeded grid
-velocities; K8 on ``chip_smoke.sand_set`` at path B's 100,000 particles
+velocities; K8 on ``chip_fixtures.sand_set`` at path B's 100,000 particles
 (tip / cone / reflected, four fifths selected), on the same set with
 every particle selected (path B's case), and on path B's sand after
 chip_smoke's 2 x 100 substeps (run by the tree's own kernels; the mean
 and largest |F_trial - I| of that sand are printed); K4 at
-``chip_smoke.k4_shapes`` (path A's collider faces and joint points, the
+``chip_fixtures.k4_shapes`` (path A's collider faces and joint points, the
 posed body's faces in mesh order and shuffled, the icosphere torso in
 both face orders, the material trainer's mover, the random points), with
 its blocks by branch where the tree's ``splat`` counts them, and beside
@@ -51,7 +51,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-import chip_smoke as cs
+from chip_fixtures import (DT, FRAMES, GRID, GRID_B, NX, OUT, REPO, SAND_B,
+                           SUBSTEPS, graph_floor_ms, graph_ms, k1_inputs,
+                           k4_shapes, nvidia_smi_line, random_order,
+                           sand_set)
 
 # one instruction of cuobjdump's listing, "/*1e00*/  @!P0 FFMA R1, ...":
 # its address and opcode; a branch's target address
@@ -108,7 +111,7 @@ def sass_issue_count(listing: str, trips: int) -> dict:
 def kernel_sass(lib: Path, name: str, tag: str) -> str | None:
     """The SASS listing of the first function of the built library
     ``lib`` whose (mangled) name contains ``name``, written to
-    ``name``-``tag``.sass in ``chip_smoke.OUT``; None without
+    ``name``-``tag``.sass in ``chip_fixtures.OUT``; None without
     ``cuobjdump`` or such a function."""
     tool = cuobjdump()
     if tool is None:
@@ -119,7 +122,7 @@ def kernel_sass(lib: Path, name: str, tag: str) -> str | None:
              if name in part.split("\n", 1)[0]]
     if not found:
         return None
-    (cs.OUT / f"{name}-{tag}.sass").write_text(found[0])
+    (OUT / f"{name}-{tag}.sass").write_text(found[0])
     return found[0]
 
 
@@ -128,7 +131,7 @@ def sand_sass(lib: Path, tag: str, n_particles: int) -> dict | None:
     library ``lib``, and the issue floor they set on ``n_particles``: one
     warp instruction per clock on each of an SM's 4 schedulers, at the
     card's highest SM clock.  The listing goes to sand_kernel-``tag``.sass
-    in ``chip_smoke.OUT``."""
+    in ``chip_fixtures.OUT``."""
     import torch
     listing = kernel_sass(lib, "sand_kernel", tag)
     if listing is None:
@@ -169,30 +172,30 @@ def k1_k3_k8_times(dev, times) -> dict:
     from mpmavatar_tpu_torch.ops import stress as kstress
     from mpmavatar_tpu_torch.ops import transfer as ktransfer
     from mpmavatar_tpu_torch.sim import bench_scene, cloth_drop
-    solver, state, model = cloth_drop.build(cs.NX, cs.GRID, device=dev)
+    solver, state, model = cloth_drop.build(NX, GRID, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    k1_in = cs.k1_inputs(state, model, solver.cfg.n_elements, gen)
-    times["cloth_stress"] = cs.graph_ms(lambda: kstress.cloth_stress(*k1_in))
+    k1_in = k1_inputs(state, model, solver.cfg.n_elements, gen)
+    times["cloth_stress"] = graph_ms(lambda: kstress.cloth_stress(*k1_in))
     solver_b, state_b, model_b, scene_b = bench_scene.build(
-        cs.GRID_B, cs.SAND_B, device=dev)
-    perm = cs.random_order(solver.cfg).to(dev)
+        GRID_B, SAND_B, device=dev)
+    perm = random_order(solver.cfg).to(dev)
     for label, x, cfg in (
             ("g2p", state.x, solver.cfg),
             ("g2p (random order)", state.x[perm], solver.cfg),
-            (f"g2p (path B, {cs.GRID_B}^3)", state_b.x, solver_b.cfg)):
+            (f"g2p (path B, {GRID_B}^3)", state_b.x, solver_b.cfg)):
         g = cfg.n_grid
         grid_v = torch.randn((g ** 3, 3), generator=gen, device=dev)
-        times[label] = cs.graph_ms(
+        times[label] = graph_ms(
             lambda: ktransfer.g2p(x, grid_v, g, cfg.inv_dx))
-    sets = {label: cs.sand_set(cs.SAND_B, dev, all_selected=every)
+    sets = {label: sand_set(SAND_B, dev, all_selected=every)
             for label, every in (
                 ("sand_stress (tip / cone / reflected set)", False),
                 ("sand_stress (every particle selected)", True))}
     # path B's sand after chip_smoke's 2 x 100 substeps, run by the tree's
     # own kernels
     t_b = 0.0
-    for _ in range(cs.FRAMES):
-        state_b, t_b = solver_b.frame(state_b, model_b, cs.DT, cs.SUBSTEPS,
+    for _ in range(FRAMES):
+        state_b, t_b = solver_b.frame(state_b, model_b, DT, SUBSTEPS,
                                       t_b, **scene_b)
     sl = slice(solver_b.cfg.n_elements, solver_b.cfg.n_no_vertices)
     sets["sand_stress (path B's sand after its run)"] = (
@@ -202,42 +205,42 @@ def k1_k3_k8_times(dev, times) -> dict:
     # (u v^T on the tip branch) feeds back every substep
     drift = (state_b.F_trial - torch.eye(3, device=dev)).abs()
     for label, args in sets.items():
-        times[label] = cs.graph_ms(lambda: kstress.sand_stress(*args))
+        times[label] = graph_ms(lambda: kstress.sand_stress(*args))
     return {"mean": float(drift.mean()), "max": float(drift.max())}
 
 
 def k4_times(dev, times, blocks) -> None:
-    """K4 of the imported tree at ``chip_smoke.k4_shapes`` into ``times``,
+    """K4 of the imported tree at ``chip_fixtures.k4_shapes`` into ``times``,
     and its blocks by branch into ``blocks`` where its ``splat`` counts
     them; the zero fill alone at the posed body's shape, two fills and
     one."""
     import torch
     from mpmavatar_tpu_torch.ops import splat as ksplat
     from mpmavatar_tpu_torch.sim import bench_scene, pose_playback
-    solver_a, state_a, _, scene_a = bench_scene.build(cs.GRID, device=dev)
+    solver_a, state_a, _, scene_a = bench_scene.build(GRID, device=dev)
     scene_p = pose_playback.build(
-        cs.NX, cs.GRID, body=pose_playback.load_body(device=dev), device=dev)
+        NX, GRID, body=pose_playback.load_body(device=dev), device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     counted = "branch_counts" in inspect.signature(ksplat.splat).parameters
-    for label, pts, vals, g, bc in cs.k4_shapes(
+    for label, pts, vals, g, bc in k4_shapes(
             dev, gen, solver_a, state_a, scene_a, scene_p).values():
-        times[label] = cs.graph_ms(
+        times[label] = graph_ms(
             lambda: ksplat.splat(pts, vals, g, g / 2.0, bc))
         if counted:
             counts = torch.zeros(2, dtype=torch.int32, device=dev)
             ksplat.splat(pts, vals, g, g / 2.0, bc, branch_counts=counts)
             blocks[label] = counts.tolist()
-    n, ch = cs.GRID ** 3, 6
-    times[f"zero fill, two ({cs.GRID}^3, CH={ch})"] = cs.graph_ms(
+    n, ch = GRID ** 3, 6
+    times[f"zero fill, two ({GRID}^3, CH={ch})"] = graph_ms(
         lambda: (torch.zeros((n, ch), device=dev),
                  torch.zeros((n,), device=dev)))
-    times[f"zero fill, one of both sizes ({cs.GRID}^3, CH={ch})"] = \
-        cs.graph_ms(lambda: torch.zeros((n * (ch + 1),), device=dev))
+    times[f"zero fill, one of both sizes ({GRID}^3, CH={ch})"] = \
+        graph_ms(lambda: torch.zeros((n * (ch + 1),), device=dev))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("tree", nargs="?", default=str(cs.REPO))
+    parser.add_argument("tree", nargs="?", default=str(REPO))
     parser.add_argument("--kernels", default="k1,k3,k8,k4",
                         help="comma-separated groups: k1, k3 and k8 (timed "
                              "together), k4")
@@ -255,17 +258,17 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.library()
     lib = Path(_build.build_info()["path"])
-    cs.OUT.mkdir(exist_ok=True)
-    times = {"graph_floor": cs.graph_floor_ms(dev)}
+    OUT.mkdir(exist_ok=True)
+    times = {"graph_floor": graph_floor_ms(dev)}
     out = {"tree": str(tree), "ms": times}
     if groups & {"k1", "k3", "k8"}:
         out["sand_f_trial_minus_i"] = k1_k3_k8_times(dev, times)
-        out["sand_sass"] = sand_sass(lib, tree.name, cs.SAND_B)
+        out["sand_sass"] = sand_sass(lib, tree.name, SAND_B)
     if "k4" in groups:
         out["splat_blocks_tile_direct"] = {}
         k4_times(dev, times, out["splat_blocks_tile_direct"])
         out["splat_sass"] = splat_sass(lib, tree.name)
-    out["card"] = cs.nvidia_smi_line()
+    out["card"] = nvidia_smi_line()
     print(json.dumps(out))
     return 0
 

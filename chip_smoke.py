@@ -4,14 +4,18 @@ its plain PyTorch version.
 
     python3 chip_smoke.py
 
+It checks, and times only the kernels (phase 4's table).  The paths'
+speed, memory and device idle share are the benchmark's cells'
+(``python3 -m benchmark.run --workload <cell> ...``).
+
 Phases (any failure exits nonzero; no phase carries on past its own):
   1. build the CUDA kernels of mpmavatar_tpu_torch/ops/csrc (timed), and
      print K1's, K2's, K3's, K4's, K6's, K7's and K8's registers, spills,
      shared memory and blocks per SM as built;
   2. the paths, each through MPMSolver.frame with every launch counter
      reset just before it and read just after, each kernel's launches
-     held to its count per substep, and a torch.profiler breakdown of 20
-     more substeps:
+     held to its count per substep, there and in the device trace of 20
+     more (replayed) substeps:
      - the cloth drop (183 x 183 cloth = 99,737 particles, 128^3 grid,
        sticky floor, dt = 1e-4), 2 frames x 100 substeps; the cloth's
        fall is held against g dt^2 n(n+1)/2;
@@ -59,12 +63,11 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      1500 x 1000) through render_avatar_frame, and the two 1080p splat
      scenes (50,000 gaussians, small and big) through rasterize, each for
      RENDER_FRAMES frames with the launch counters reset just before and
-     read just after (2 K6 launches per frame, no other kernel), zero
-     overflow, and a profile of one more frame; K6 (which gathers each
-     item's live rows of the parameter table itself and skips the
-     sentinel slots) against its gathered plain version on each scene's
-     own table and worklists (avatar phases 1 and 2 at C = 32,
-     big_splats' phase 2 at C = 128) and on sentinel-only items, the
+     read just after (2 K6 launches per frame, no other kernel) and zero
+     overflow; K6 (which gathers each item's live rows of the parameter
+     table itself and skips the sentinel slots) against its gathered
+     plain version on each scene's own table and worklists (avatar phases
+     1 and 2 at C = 32, big_splats' phase 2 at C = 128) and on sentinel-only items, the
      alpha-cutoff ties counted; the avatar frame through K6 against the
      frame through the plain version, beside a wrong path (compositing
      back to front); one gaussian on a 1080p frame against the analytic
@@ -73,30 +76,27 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      avatar of phase 6 with a seeded random GT, the full regularizer set,
      per-group Adam) for TRAIN_STEPS steps with the launch counters reset
      just before and read just after (2 K6 and 2 K7 launches per step, no
-     other kernel), steady ms/step (the median of the steps after
-     WARM_STEPS, with its range), peak memory and a profile of one more
-     step, and by input shape for the indexing backwards (none may be of
-     the worklists' (W, C) ids); K7 (d of the parameter table, added with
-     atomics) against its plain version on the step's own worklists and
-     cotangents (phases 1 and 2, captured with a hook), on big_splats'
-     C = 128 worklist and on sentinel-only items; the step's gradients
+     other kernel), and the indexing backwards in the device trace of one
+     more step by input shape (none may be of the worklists' (W, C) ids);
+     K7 (d of the parameter table, added with atomics) against its plain
+     version on the step's own worklists and cotangents (phases 1 and 2,
+     captured with a hook), on big_splats' C = 128 worklist and on sentinel-only items; the step's gradients
      (every float leaf and the view-space gradient) through K7 against
      the same step through the plain compositor, beside a wrong path (K7
-     with the transmittance cotangent dropped); SSIM's share of the step;
-     one densification pass (alive splats before and after, at least one
-     per face); LOSS_STEPS steps, the opacity group frozen, toward the
-     avatar rendered with a second seed's colours, whose L1 must fall by
-     more than through K7 with its colour rows zeroed;
+     with the transmittance cotangent dropped); one densification pass
+     (alive splats before and after, at least one per face); LOSS_STEPS
+     steps, the opacity group frozen, toward the avatar rendered with a
+     second seed's colours, whose L1 must fall by more than through K7
+     with its colour rows zeroed;
   8. the differentiated substep: GRAD_SUBSTEPS substeps of the full-width
      cloth drop (stretched in its plane, d3 scaled to 0.9, off the return
      map's R33 = 1 branch point: ``stretched``) and the gradient of a
      seeded vertex loss w.r.t. mu, lam, mass and R_inv, with the launch
      counters reset just before and read just after (K1, K2, K5, K3 once
-     per substep; the backward launches none);
-     ms per differentiated substep, the backward's share, device busy and
-     peak memory; the gradient against the same gradient through the
-     plain path on the CPU, per leaf relative to its largest entry (the
-     elements that cross R33 = 1 between the two counted and left out),
+     per substep; the backward launches none); the gradient against the
+     same gradient through the plain path on the CPU, per leaf relative
+     to its largest entry (the elements that cross R33 = 1 between the
+     two counted and left out),
      beside a wrong path: the kernels' outputs detached, as before they
      had a backward;
   9. the material train step at full width (train/bench_material.py's
@@ -104,11 +104,9 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      200^3, its top row of 183 vertices pinned by the mover, the 32 x 32
      body sphere; 2 frames x 10 substeps, dt = 1e-4), the tracked cloth
      turning about the vertical axis and the rest shape 10% shorter in y:
-     one untimed warm-up step, then TRAIN_STEPS_M train steps with the
-     launch counters reset just before and read just after (each
-     substep's kernels three times: forward, the frame's recompute and
-     its own), ms per step and per
-     differentiated substep, peak memory and a profile of one more step;
+     TRAIN_STEPS_M train steps with the launch counters reset just
+     before and read just after (each substep's kernels three times:
+     forward, the frame's recompute and its own);
      the loss finite and D, E, H moving; a finite-difference step whose
      probe-0 loss must equal the autodiff forward's at the same
      parameters; simulate for 2 frames (finite, the cloth moves); d/d(D,
@@ -127,18 +125,18 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      deform_tracked_to_poses (k = 10), its first 256 vertices and 128
      faces pinned to the re-posed velocities, the posed body as the
      moving collider: smplx_forward's vertices, joints and transforms and
-     the re-posed cloth on the card against the CPU (KNN ties counted),
-     the posing time and the KNN's share of it; 2 frames x 100 substeps
-     with the launch counters reset just before and read just after (K1,
-     K2, K5, K3 once and K4 twice per substep), finite after each frame,
-     the body moving, K5's mesh branch changing cells, a profile of 20
-     more substeps and the peak memory; then the scene cut to a 48 x 48
-     cloth and 64^3 with the body at full width, 10 substeps on the kernel
-     path against the plain path on the CPU, beside two wrong paths (the
+     the re-posed cloth on the card against the CPU (KNN ties counted);
+     2 frames x 100 substeps with the launch counters reset just before
+     and read just after (K1, K2, K5, K3 once and K4 twice per substep,
+     there and in the device trace of 20 more), finite after each frame,
+     the body moving, K5's mesh branch changing cells; then the scene cut
+     to a 48 x 48 cloth and 64^3 with the body at full width, 10 substeps
+     on the kernel path against the plain path on the CPU, beside two
+     wrong paths (the
      body held still; collider friction 0);
  11. the stage-2 and stage-4 tools: data/make_synthetic_actorshq's
      capture at its defaults (9 ring cameras x 4 frames, 1500 x 1000, the
-     50,244-face body, the teacher through K6), timed; the stage-2 CLI
+     50,244-face body, the teacher through K6); the stage-2 CLI
      (train/train_appearance.py) on it for CLI_ITERS iterations with
      --work_cap 8192 and --preload_device, the last camera held out,
      load_mesh_avatar's 200,976 slots, one densification pass and test
@@ -147,15 +145,12 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      launches per step; the test views' tile path launches none): the
      losses finite, zero overflow, the densified avatar with a splat on
      every face, the held-out L1 falling and PSNR rising by more than
-     through K7 with its colour rows zeroed; ms per step and per test
-     view, peak memory; the saved checkpoint reloaded into a fresh avatar
-     renders the trained avatar's test view; the host's ms per sample
-     with and without --preload_device and a profile of a few steps; stage
-     4 (train/evaluate.py::render_eval_sequence) on the capture's tracked
-     meshes at AO 256^2 with the gray start and with the checkpoint, the
-     bake's and the render's ms per frame and the bake's peak memory, the
-     bake on the card against the CPU at AO_CUT^2; the CLI at a cut size
-     (CUT) on the card against the CPU; the metrics CLI
+     through K7 with its colour rows zeroed; the saved checkpoint
+     reloaded into a fresh avatar renders the trained avatar's test
+     view; stage 4 (train/evaluate.py::render_eval_sequence) on the
+     capture's tracked meshes at AO 256^2 with the gray start and with
+     the checkpoint, the bake on the card against the CPU at AO_CUT^2;
+     the CLI at a cut size (CUT) on the card against the CPU; the metrics CLI
      (train/eval_metrics.py) over both trees with seeded LPIPS weights,
      every metric finite and the checkpoint's PSNR above the gray start's;
  12. the zero-shot demo: data/make_demo_assets's assets (a 183 x 183
@@ -164,7 +159,7 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      and its sit-down poses cut to DEMO_POSES; the tracked skirt avatar)
      through train/run_demo at 250^3 and 400 substeps a frame, one frame
      per pose and DEMO_EXTRA more (the sand reaching the body's top in
-     the last, timed frames), 100,000 sand particles released from frame
+     the last frames), 100,000 sand particles released from frame
      1, with the launch counters reset just before and read just after
      (K1, K2, K5, K3, K4 (the collider: no vertex is pinned, so no
      mover) and K8 once per substep; the bakes and the tile-path orbit
@@ -191,9 +186,8 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      orbit frame of the run (AO bake and render at 1024^2) without
      overflow, ORBIT_CHECKS of them again with and without the sand, and
      at ORBIT_CUT^2 on the card against the CPU off the alpha cutoff's
-     ties; ms per substep, per bake and per orbit frame, the release
-     modifiers' share of the substep, peak memory and a profile of 20
-     more substeps;
+     ties; the launches per substep in the device trace of 20 more
+     substeps;
  13. stage-1 tracking: train/run_tracking on phase 11's capture (9
      cameras, 1500 x 1000, 50,244 faces, one gaussian each), TRACK_ITERS
      iterations on frames 0 and 1 through the worklist compositor
@@ -205,7 +199,6 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      against their plain versions on the card, beside K7's output
      detached; K6 and K7 against their plain versions on one more
      iteration's own worklists and cotangents (phases 6 and 7's checks);
-     ms per iteration, peak memory and a profile of one more iteration;
  14. multi-device at world size 1, over a one-rank NCCL group in this
      process (the machine has one card, and NCCL refuses two ranks on
      one device; the cross-rank logic is held on the CPU over gloo by
@@ -214,10 +207,8 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      width, the sphere as its (F, 3, 3) triangles, FRAMES x SUBSTEPS
      substeps with the launch counters reset just before and read just
      after (path B's: K1, K2, K3, K5, K8 once and K4 twice per
-     substep), finite, its ms per substep beside MPMSolver.frame's on
-     the same scene, a profile of 20 more substeps (device busy and
-     idle, the collectives' share); over COMPARE_SUBSTEPS substeps
-     against MPMSolver.frame on the card at PATH_ATOL, on path B's
+     substep), finite; over COMPARE_SUBSTEPS substeps against
+     MPMSolver.frame on the card at PATH_ATOL, on path B's
      scene with the sphere wound outward, its top through the cloth and
      rising (MD_BODY_CENTER),
      beside the collider dropped; K5 on the second half of phase 4's
@@ -225,20 +216,21 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      with its bound) and against the whole grid's second half, and
      every branch on the slab; the sharded material step at phase 9's
      shape (MAT_FRAMES x MAT_SUBSTEPS substeps, each checkpointed):
-     launches, ms per step, peak memory, each leaf's gradient against
-     the single-device autograd of the same loss on the card beside
-     K1's outputs detached; the data-parallel stage-2 step
+     launches, each leaf's gradient against the single-device autograd of
+     the same loss on the card beside K1's outputs detached; the
+     data-parallel stage-2 step
      (parallel/appearance_dp.py) on phase 7's avatar with DP_SAMPLES
      samples (K6 and K7 twice each per sample): its gradients against
      the mean of the single-device ``make_loss_and_grads`` per leaf,
-     beside the first sample's alone, ms per step and peak memory;
+     beside the first sample's alone, then DP_STEPS more steps without
+     overflow and with a finite loss;
  15. the production recovery: train/stage3_production.py --recover at
      full width (the 158 x 158 hanging cloth, 74,262 particles, 200^3,
      1 x 400 substeps, REC_STEPS steps) with the launch counters reset
      just before and read just after: finite, the synthetic trajectory
      moving by more than 0.01, the loss falling over the steps, each
-     parameter's move toward TRUTH or away printed; s per step and
-     peak memory, the trace in the output directory;
+     parameter's move toward TRUTH or away printed, the trace in the
+     output directory;
  16. the drivers: train/bench_tracking.py at its defaults (the joint
      SMPL-X/VPoser fit: a 40,612-face mesh at 1500 x 1000, the
      10,475-vertex, 22-joint rig with VPoser decoding its body pose from
@@ -246,12 +238,9 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      BENCH_TRACK_ITERS iterations after 2 on the tile path (the JAX
      bench's: no kernel launches), then on the worklist compositor with
      the launch counters reset just before and read just after (K6 and K7
-     twice per iteration, nothing else), ms per iteration, steps/s and the
-     projected minutes per 3,000-iteration frame, the loss finite, no
-     overflow, peak memory; K6 and K7 against their plain versions on one
-     more iteration's own worklists and cotangents; a profile of one more
-     iteration on each path (device busy and idle, kernels) and the
-     collision penalty's device ms; one joint iteration's gradient w.r.t. the
+     twice per iteration, nothing else), the loss finite, no overflow; K6
+     and K7 against their plain versions on one more iteration's own
+     worklists and cotangents; one joint iteration's gradient w.r.t. the
      vertices, colours, VPoser latent and SMPL-X translation at a cut
      shape on the card against the CPU plain path, beside the SMPL-X
      geometry detached; then ``python -m mpmavatar_tpu_torch.bench
@@ -266,30 +255,34 @@ Phases (any failure exits nonzero; no phase carries on past its own):
      must raise the held-out PSNR by more than 3 dB; the launch counters
      reset before and read after each (K6 and K7 twice per iteration or
      step).
-The last lines are the card's name and power limit, one JSON object
-with every kernel's numbers, and the JSON status line.
+The first line is the card's name and power limit; the last two are one
+JSON object with every kernel's numbers and the JSON status line.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import re
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
+
+from chip_fixtures import (COVER_BAND, COVER_EPS, DEMO_CUT, DT, FRAMES, GRID,
+                           GRID_B, MAT_GRID, MAT_NX, MAT_OMEGA, NX, OUT,
+                           REPO, SAND_B, STAGE_PSNR_ITERS, STAGE_TRACK_ITERS,
+                           SUBSTEPS, check_traced, converge_tracking,
+                           demo_cut_scene, event_ms, fake_tracking_assets,
+                           free_port, graph_floor_ms, graph_ms, heldout_psnr,
+                           k1_inputs, k4_shapes, lookat_cams, nvidia_smi_line,
+                           random_order, sand_set, splat_coverage,
+                           splat_n_max, stage_cloth)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 FLOP/s
 # outside the tensor cores.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 
-NX, GRID, DT = 183, 128, 1e-4
-FRAMES, SUBSTEPS = 2, 100
 PROFILE_SUBSTEPS = 20
-GRID_B, SAND_B = 250, 100_000
 COMPARE_SUBSTEPS = 10
 # tolerances: kernel vs plain on identical inputs, as max |a - b| over
 # max |plain| per output (float32, reordered sums and fused multiply-adds;
@@ -301,18 +294,6 @@ KERNEL_REL_TOL = {"cloth_stress": 1e-4, "p2g": 1e-5, "grid_pipeline": 1e-5,
 # in another (atomic) order differs by up to ~n/2 ulps, and the bench
 # sphere's 96 zero-area pole faces and the thin faces around them pile
 # their centroids into a few cells
-# K4 as K5 reads it (splat_coverage): a cell is covered where its weight
-# exceeds COVER_EPS (csrc/grid_pipeline.cu kEps); the kernel and the plain
-# version must cover the same cells but those whose plain weight lies
-# within a factor COVER_BAND of COVER_EPS (counted, and printed), and on
-# the cells both cover acc / w and the unit normal must agree within the
-# splat's tolerance: each is a ratio of two sums of the same n <= n_max
-# terms in another order, each sum within (n - 1) 2^-24 of the sum of its
-# terms' magnitudes, so the velocity within n_max 2^-23 of max |values|,
-# and the normal within it times w / |acc[:, 3:6]| (opposing normals
-# cancel).  A fixed-point tile would fail it where only stencil tails
-# (weights far below its quantum) reach a cell
-COVER_EPS, COVER_BAND = 1e-15, 2.0
 # K8, on the particles whose return-map branch is the same in both: F_new
 # (O(1)) absolutely, the stress relative to mu.  The stress is
 # (2 mu + 3 lam) log s ~ 10 mu log s, and log s of s ~ 1 carries ~1e-7 of
@@ -369,9 +350,8 @@ CUTOFF_BAND = 1e-4
 FRAME_TOL = 1e-5
 ANALYTIC_TOL = 1e-5
 
-# the train path (phase 7): steps driven and counted (the steady step is
-# the median of those after the warm-up), steps toward the second seed's
-# colours; K7 against its plain version as max |a - b| /
+# the train path (phase 7): steps driven and counted, steps toward the
+# second seed's colours; K7 against its plain version as max |a - b| /
 # max |plain| per parameter row, on the items with no evaluation within
 # CUTOFF_BAND of the cutoff (a flip there moves every gradient of the
 # pixel): each entry is a sum over 256 pixels of terms carried through the
@@ -382,7 +362,6 @@ ANALYTIC_TOL = 1e-5
 # forwards are K6-exact to ~4e-7 and cutoff flips between expf and
 # torch.exp move a few pixels), with the wrong path read beside it
 TRAIN_STEPS = 7
-WARM_STEPS = 2
 LOSS_STEPS = 30
 K7_REL_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
@@ -400,13 +379,12 @@ SUBSTEP_GRAD_TOL = 1e-3
 # MAT_OMEGA about the vertical axis (so the pinned row moves with a
 # non-uniform velocity) with seeded noise on its free vertices, and the
 # rest shape is 10% shorter in y than the start; TRAIN_STEPS_M counted
-# steps after one warm-up step; the finite-difference step's probe-0
-# loss against the autodiff forward at the same parameters (the same
-# kernels, K2's atomics in another order); the gradient against the CPU
-# plain path over MAT_GRAD_SUBSTEPS substeps, per leaf as |a - b| /
+# steps; the finite-difference step's probe-0 loss against the autodiff
+# forward at the same parameters (the same kernels, K2's atomics in another
+# order); the gradient against the CPU plain path over MAT_GRAD_SUBSTEPS
+# substeps, per leaf as |a - b| /
 # |cpu|, at phase 8's tolerance
-MAT_NX, MAT_GRID, MAT_FRAMES, MAT_SUBSTEPS = 183, 200, 2, 10
-MAT_OMEGA, MAT_NOISE = 2.0, 1e-4
+MAT_FRAMES, MAT_SUBSTEPS, MAT_NOISE = 2, 10, 1e-4
 TRAIN_STEPS_M = 3
 FD_LOSS_TOL = 1e-6
 MAT_GRAD_GRID, MAT_GRAD_SUBSTEPS = 200, 3
@@ -433,18 +411,16 @@ POSE_CUT = dict(nx=48, grid=64)
 # the stage-2 and stage-4 tools (phase 11): data/make_synthetic_actorshq's
 # capture at its defaults, the stage-2 CLI on it for CLI_ITERS iterations
 # with one densification pass (at CLI_DENSIFY) and test evaluations after
-# the first and the last step (the pass at CLI_GRAD_THRESHOLD);
-# CLI_WARM steps left out of the steady
-# ms/step; the reloaded checkpoint's render within CKPT_TOL of the largest
-# value (the same float32 arrays through the PLY); the bake on the card
-# against the CPU at AO_CUT^2 per texel within AO_TOL (the same float32
+# the first and the last step (the pass at CLI_GRAD_THRESHOLD); the
+# reloaded checkpoint's render within CKPT_TOL of the largest value (the
+# same float32 arrays through the PLY); the bake on the card against the
+# CPU at AO_CUT^2 per texel within AO_TOL (the same float32
 # formulas, the occupancy counts exact); the CLI at CUT on the card against
 # the CPU, its losses and test L1 and PSNR within CUT_TOL relative
-CLI_ITERS, CLI_DENSIFY, CLI_WARM, CLI_PROFILE_STEPS = 30, 10, 2, 3
+CLI_ITERS, CLI_DENSIFY = 30, 10
 # the default threshold (2e-4) clones and splits nothing in 10 steps from
 # the gray start (an H100 run): a tenth of it makes the pass act
 CLI_GRAD_THRESHOLD = 2e-5
-SAMPLE_REPS = 20
 CKPT_TOL = 1e-6
 AO_CUT, AO_TOL = 64, 1e-5
 CUT = dict(n_frames=2, n_cams=3, width=96, height=64, mesh=(20, 18),
@@ -458,8 +434,8 @@ CUT_ITERS, CUT_TOL = 4, 1e-5
 # leaves it at the top (G2P's clamp), from where it falls as g t (its
 # median fall over frame FALL_FRAME within FALL_REL_TOL) onto the body's
 # top (the rig sits down over the poses, its top from sim y 1.875 to
-# 1.676), which it reaches in frame 6: the last, timed frame and the
-# profile after it run with the sand in contact (some of it slower than
+# 1.676), which it reaches in frame 6: the last frame and the traced
+# substeps after it run with the sand in contact (some of it slower than
 # g t).  The pre-P2G modifier leaves a live window's particles at |v| <=
 # RELEASE_STILL; K5's mesh branch changes some cells; the cut scene
 # (DEMO_CUT) over COMPARE_SUBSTEPS substeps on the kernel path against
@@ -470,9 +446,6 @@ CUT_ITERS, CUT_TOL = 4, 1e-5
 DEMO_POSES, DEMO_GRID, DEMO_SUBSTEPS, DEMO_RELEASE = 3, 250, 400, 1
 DEMO_EXTRA, FALL_FRAME = 5, 2
 RELEASE_STILL = 1e-6
-DEMO_CUT = dict(grid=64, skirt=(48, 48), sand_res=(30, 5, 20),
-                sand_center=(-0.4, 1.2, -0.1), release=(0.0, 0.05),
-                body_r=0.25, body_v=(0.0, 0.0, 0.5))
 ORBIT_CHECKS, ORBIT_CUT = 2, 256
 # two splats that cover a pixel at depths within DEPTH_BAND (relative) of
 # each other: the card's and the CPU's projections round the depth apart
@@ -483,12 +456,11 @@ DEPTH_BAND = 1e-6
 
 # stage-1 tracking (phase 13): train/run_tracking on phase 11's capture,
 # TRACK_ITERS iterations on frame 0 and on frame 1, through the worklist
-# compositor (TRACK_WORK_CAP); K6 and K7 twice per iteration; the steady
-# ms per iteration is the median after TRACK_WARM; one iteration's
-# gradient through K6/K7 against their plain versions on the card per
-# leaf (TRACK_GRAD_TOL of the leaf's largest entry), beside K7's output
-# detached
-TRACK_ITERS, TRACK_WORK_CAP, TRACK_WARM = (30, 10), 8192, 2
+# compositor (TRACK_WORK_CAP); K6 and K7 twice per iteration; one
+# iteration's gradient through K6/K7 against their plain versions on the
+# card per leaf (TRACK_GRAD_TOL of the leaf's largest entry), beside K7's
+# output detached
+TRACK_ITERS, TRACK_WORK_CAP = (30, 10), 8192
 TRACK_FACES = 50244
 TRACK_GRAD_TOL = 1e-3
 TRACK_LEAVES = ("vertices", "rgb_colors", "cam_m", "cam_c")
@@ -510,7 +482,7 @@ TRACK_LEAVES = ("vertices", "rgb_colors", "cam_m", "cam_c")
 # the data-parallel stage-2 step on phase 7's avatar with DP_SAMPLES
 # samples (K6 and K7 twice each per sample) against the mean of the
 # single-device gradients per leaf at STEP_GRAD_TOL, beside the first
-# sample's gradient alone, then DP_STEPS timed steps
+# sample's gradient alone, then DP_STEPS more steps
 MD_GRAD_TOL = 1e-3
 # the comparison's contact: path B's sphere (r 0.25) wound outward, its
 # top 0.01 above the cloth (at 250^3 a top 0.02 under the cloth, as
@@ -531,8 +503,7 @@ REC_NX, REC_GRID, REC_SUBSTEP, REC_STEPS = 158, 200, 400, 2
 # translation taken as a leaf for the check) at BENCH_TRACK_CUT on the
 # card against the CPU plain path, per leaf at TRACK_GRAD_TOL of its
 # largest entry, beside the SMPL-X geometry detached (the latent's and the
-# translation's gradients then vanish); the collision loss's device ms;
-# a profile of one tile-path iteration; then mpmavatar_tpu_torch.bench
+# translation's gradients then vanish); then mpmavatar_tpu_torch.bench
 # --headline_only in this process, whose BENCH_KEYS must be finite and
 # positive
 BENCH_TRACK_ITERS, BENCH_TRACK_WORK_CAP = 10, 8192
@@ -555,75 +526,24 @@ BENCH_KEYS = ("value", "grid200_substeps_per_sec",
 # the held-out PSNR by more than STAGE_PSNR_GAIN dB.  The 80 x 80 views
 # have 25 tiles: phase 2 holds at most 25 x 7 items (tracking,
 # tile_capacity 256) and 25 x 3 (stage 2, 128), under STAGE_WORK_CAP
-STAGE_TRACK_ITERS, STAGE_LOSS_RATIO, STAGE_ERR_RATIO = 250, 0.5, 0.4
-STAGE_PSNR_ITERS, STAGE_PSNR_GAIN = 120, 3.0
+STAGE_LOSS_RATIO, STAGE_ERR_RATIO = 0.5, 0.4
+STAGE_PSNR_GAIN = 3.0
 STAGE_WORK_CAP = 256
 
-REPO = Path(__file__).resolve().parent
-OUT = REPO / "chiprun_out"
 CSRC = "mpmavatar_tpu_torch/ops/csrc/"
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def event_ms(fn, reps: int = 5, inner: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` runs of the mean time of ``inner``
-    back-to-back calls, from CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        runs.append(a.elapsed_time(b) / inner)
-    return statistics.median(runs)
-
-
-def graph_ms(fn, reps: int = 5, inner: int = 20) -> float:
-    """Device time of one call of ``fn``: ``inner`` calls captured in one
-    CUDA graph, the graph replayed back to back and timed with CUDA events,
-    per call.  Neither the host's launches of the calls nor its launch of
-    each replay is counted: with one call per graph a replay of a
-    1-element fill read 0.0110 ms once the profiler had run in the process
-    (H100 80GB HBM3, 700 W), above a fast kernel's time."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(inner):
-            fn()
-    return event_ms(graph.replay, reps, 2, warmup=2) / inner
-
-
 def profile_device(fn, warm=None):
-    """torch.profiler over one call of ``fn``: (device-busy seconds,
-    profiled wall seconds, [(kernel name, device us, launches)] by device
-    time).  Only the device-side kernel and copy entries are summed: an
-    operator's entry repeats the time of the kernels it launched, and so
-    does a user annotation's range on the device (the optimizer's
-    ``Optimizer.step#Adam.step``), which also has a host-side entry of
-    its name.  With ``warm``, the profiler first traces one call of it
-    and discards that (its schedule's warm-up step), so that no record of
-    ``fn``'s first kernels goes missing, as some did in phase 12 (2 to 4
-    of the port's kernels in the first of 20 substeps)."""
+    """The device trace of one call of ``fn`` under torch.profiler:
+    [(kernel name, device us, launches)], the device-side kernel and copy
+    entries only (an operator's entry repeats the time of the kernels it
+    launched, and so does a user annotation's range on the device, the
+    optimizer's ``Optimizer.step#Adam.step``, which also has a host-side
+    entry of its name).  With ``warm``, the profiler first traces one
+    call of it and discards that (its schedule's warm-up step), so that
+    no record of ``fn``'s first kernels goes missing, as some did in
+    phase 12 (2 to 4 of the port's kernels in the first of 20
+    substeps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -636,10 +556,8 @@ def profile_device(fn, warm=None):
             warm()
             torch.cuda.synchronize()
             prof.step()
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         if warm is not None:
             prof.step()
     averages = prof.key_averages()
@@ -654,43 +572,9 @@ def profile_device(fn, warm=None):
             us = getattr(e, "self_cuda_time_total", 0.0)
         if us > 0:
             rows.append((e.key, float(us), int(e.count)))
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows) * 1e-6, wall, rows
+    return rows
 
 
-# the port's simulation kernels by their names in a device trace, to the
-# names ops/_build.py counts their launches under
-TRACE_KERNELS = {"cloth_stress_kernel": "cloth_stress",
-                 "sand_kernel": "sand_stress", "p2g_kernel": "p2g",
-                 "grid_pipeline_kernel": "grid_pipeline",
-                 "g2p_kernel": "g2p", "splat_kernel": "splat",
-                 "splat_direct_kernel": "splat", "windows_kernel": "windows"}
-
-
-def traced_launches(rows) -> dict:
-    """The calls of the port's simulation kernels in ``profile_device``'s
-    rows, by launch-count name: what the device ran, which a replayed CUDA
-    graph's launch counts (the capture's, once per replay) cannot show."""
-    out = {}
-    for key, _, calls in rows:
-        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)", key)
-        name = TRACE_KERNELS.get(m.group(1)) if m else None
-        if name is not None:
-            out[name] = out.get(name, 0) + calls
-    return out
-
-
-def check_traced(name, rows, per_sub, n) -> dict:
-    """Raise unless the device trace ``rows`` of ``n`` substeps ran each
-    kernel of ``per_sub`` (name -> launches per substep) that many times
-    and no other of the port's simulation kernels; returns its counts."""
-    traced = traced_launches(rows)
-    want = {k: per * n for k, per in per_sub.items()}
-    print(f"{name}: the device trace of {n} substeps ran {traced}")
-    if traced != want:
-        raise AssertionError(f"{name}: the device trace of {n} substeps "
-                             f"ran {traced}, expected {want}")
-    return traced
 
 
 def rel_err(outs, refs):
@@ -711,252 +595,20 @@ def bound(n_bytes: float, n_flops: float):
     return 1e3 * t_ops, "operations"
 
 
-def icosphere(levels: int, in_place: bool = False):
-    """A unit icosahedron whose triangles are split into 4, ``levels``
-    times, the new vertices pushed onto the sphere: 10 * 4^levels + 2
-    vertices and 20 * 4^levels faces, wound outward, of near-equal area
-    and with no pole.  Returns (verts (V, 3) float32, faces (F, 3)).
-
-    The faces come by kind of child (each face's first child, then each
-    face's second, ...), so that consecutive faces lie on the 20 faces of
-    the icosahedron, all over the sphere; with ``in_place`` each face's
-    four children replace it where it stood, so that consecutive faces
-    are neighbours, as a mesh keeps them."""
-    import numpy as np
-    t = (1.0 + 5 ** 0.5) / 2.0
-    verts = np.asarray([(-1, t, 0), (1, t, 0), (-1, -t, 0), (1, -t, 0),
-                        (0, -1, t), (0, 1, t), (0, -1, -t), (0, 1, -t),
-                        (t, 0, -1), (t, 0, 1), (-t, 0, -1), (-t, 0, 1)])
-    faces = np.asarray([(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10),
-                        (0, 10, 11), (1, 5, 9), (5, 11, 4), (11, 10, 2),
-                        (10, 7, 6), (7, 1, 8), (3, 9, 4), (3, 4, 2),
-                        (3, 2, 6), (3, 6, 8), (3, 8, 9), (4, 9, 5),
-                        (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)])
-    unit = lambda a: a / np.linalg.norm(a, axis=1, keepdims=True)
-    verts = unit(verts)
-    for _ in range(levels):
-        edges = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
-                                faces[:, [2, 0]]])
-        ends, edge = np.unique(np.sort(edges, 1), axis=0,
-                               return_inverse=True)
-        ab, bc, ca = len(verts) + edge.reshape(3, -1)
-        verts = np.concatenate([verts, unit(verts[ends[:, 0]]
-                                            + verts[ends[:, 1]])])
-        a, b, c = faces.T
-        faces = np.stack([np.stack(f, -1) for f in (
-            (a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca))],
-            1 if in_place else 0).reshape(-1, 3)
-    return verts.astype(np.float32), faces
 
 
-def graph_floor_ms(dev) -> float:
-    """graph_ms of a 1-element fill: what a call in a graph costs with
-    next to no work."""
-    import torch
-    tiny = torch.zeros(1, device=dev)
-    return graph_ms(tiny.zero_)
 
 
-def k4_shapes(dev, gen, solver_a, state_a, scene_a, scene_p) -> dict:
-    """K4's inputs at the main path's shapes and beside them, by key:
-    (label, points, values, G, bounds_check).  The bench collider's faces
-    (CH = 6) and the joint points (CH = 3) of path A's state at 128^3, the
-    faces at 250^3; the posed body's 20,736 faces (phase 10's collider) at
-    its first pose; a pole-free torso (``icosphere(5)``, 20,480 faces, on
-    the posed body's ellipsoid, turning at 1 rad/s about the vertical
-    axis) in its construction order and in place (``in_place``); the
-    material trainer's mover (its 183 pinned points on 200^3, turning at
-    MAT_OMEGA); 20,000 random points with some at base G - 3 and below 0,
-    with and without the bounds check; the stencil tails of
-    ``tail_lattice(16, GRID)``; the posed body's faces in a random order.
-    Random draws from ``gen``."""
-    import numpy as np
-    import torch
-    from mpmavatar_tpu_torch.core import stepping
-    from mpmavatar_tpu_torch.core.colliders import MeshCollider
-    from mpmavatar_tpu_torch.sim import SimTransform, pose_playback
-    from mpmavatar_tpu_torch.train import bench_material
-    shapes = {}
-    face_pts, face_vals = stepping.mesh_face_values(
-        solver_a.colliders.mesh_colliders[0], scene_a["mesh_x"],
-        scene_a["mesh_v"])
-    joint_pts, joint_vals = stepping.mover_points(
-        solver_a.cfg, state_a, scene_a["joint_verts_v"],
-        scene_a["joint_faces_v"], None)
-    shapes["faces"] = (f"splat (collider faces, {GRID}^3)", face_pts,
-                       face_vals, GRID, True)
-    shapes["joints"] = (f"splat (joint points, {GRID}^3)", joint_pts,
-                        joint_vals, GRID, True)
-    shapes["faces_b"] = (f"splat (collider faces, {GRID_B}^3)", face_pts,
-                         face_vals, GRID_B, True)
-    in_p = scene_p.inputs(0)
-    pose_pts, pose_vals = stepping.mesh_face_values(
-        scene_p.solver.colliders.mesh_colliders[0], in_p["mesh_x"],
-        in_p["mesh_v"])
-    shapes["posed"] = (f"splat (the posed body's {len(pose_pts)} faces, "
-                       f"{GRID}^3)", pose_pts, pose_vals, GRID, True)
-    ico_c = torch.tensor(pose_playback.BODY_CENTER, device=dev)
-    for key, in_place in (("ico", False), ("ico_in_place", True)):
-        ico_v, ico_f = icosphere(5, in_place)
-        ico_x = torch.as_tensor(ico_v, device=dev) * torch.tensor(
-            pose_playback.BODY_RADII, device=dev) + ico_c
-        rel = ico_x - ico_c
-        ico_vel = torch.stack([rel[:, 2], torch.zeros_like(rel[:, 0]),
-                               -rel[:, 0]], -1)
-        ico_pts, ico_vals = stepping.mesh_face_values(
-            MeshCollider(faces=torch.as_tensor(ico_f, device=dev),
-                         friction=torch.tensor(0.5, device=dev)), ico_x,
-            ico_vel)
-        label = (f"splat (the icosphere torso, its faces in place, "
-                 f"{GRID}^3)" if in_place else
-                 f"splat (a pole-free {len(ico_pts)}-face icosphere torso, "
-                 f"{GRID}^3)")
-        shapes[key] = (label, ico_pts, ico_vals, GRID, True)
-    cloth_m, _ = bench_material.hanging_cloth(MAT_NX, MAT_NX)
-    tf_m = SimTransform.from_verts(cloth_m)
-    row = cloth_m[:MAT_NX]
-    row_v = MAT_OMEGA * np.stack([row[:, 2] - 1.0, np.zeros(MAT_NX),
-                                  1.0 - row[:, 0]], -1)
-    shapes["mover"] = (f"splat (the material trainer's {MAT_NX} pinned "
-                       f"points, {MAT_GRID}^3)", tf_m.wld2sim(row, dev),
-                       tf_m.vel2sim(row_v, dev), MAT_GRID, True)
-    edge = 0.1 + 1.8 * torch.rand((20_000, 3), generator=gen, device=dev)
-    dx = 2.0 / GRID
-    edge[:2000, 0] = (GRID - 2.3) * dx + 0.4 * dx * torch.rand(
-        2000, generator=gen, device=dev)          # base G - 3: dropped
-    edge[2000:4000, 1] = -0.2 * torch.rand(2000, generator=gen, device=dev)
-    # base -1 on x, distinct points spread over the (y, z) cells; 16 of
-    # them with base (-1, -1, -1): dropped, or wrapped without the check
-    edge[4000:6000, 0] = 0.45 * dx * torch.rand(2000, generator=gen,
-                                                device=dev)
-    edge[4000:4016] = 0.45 * dx * torch.rand((16, 3), generator=gen,
-                                             device=dev)
-    edge_vals = torch.randn((20_000, 6), generator=gen, device=dev)
-    for bc in (True, False):
-        shapes[f"random_{bc}"] = (
-            f"splat (random points with base G-3 and below 0, "
-            f"bounds_check={bc})", edge, edge_vals, GRID, bc)
-    tail_pts, tail_vals = tail_lattice(16, GRID)
-    shapes["tails"] = (f"splat (stencil tails: 3 points on each of 16^3 "
-                       f"lattice sites, {GRID}^3)",
-                       torch.as_tensor(tail_pts, device=dev),
-                       torch.as_tensor(tail_vals, device=dev), GRID, True)
-    shuffle = torch.randperm(len(pose_pts), generator=gen, device=dev)
-    shapes["posed_shuffled"] = (
-        f"splat (the posed body's {len(pose_pts)} faces in a random order, "
-        f"{GRID}^3)", pose_pts[shuffle], pose_vals[shuffle], GRID, True)
-    return shapes
 
 
-def tail_lattice(n: int, g: int):
-    """K4's stencil tails: n^3 sites in lattice order on bases three cells
-    apart (from 4 on every axis: no two sites' stencils meet), 3 points on
-    each; per site and axis the points' fractions fx = grid_pos - base are
-    either all 1.5 - d (the stencil's first node weighs d^2 / 2 there) or
-    all 0.5 + d (its last node), d log-uniform in [1e-4, 0.3] per point,
-    so that the cells which only such tails reach carry sums of 3 weights
-    from ~0.05 down to ~1e-25, many around K5's 1e-15; per point a seeded
-    velocity and unit normal (CH = 6).  Returns numpy float32 (points
-    (3 n^3, 3), values (3 n^3, 6)) on a grid of g cells over 2.0 (g >=
-    3 n + 5)."""
-    import numpy as np
-    rng = np.random.default_rng(0)
-    sites = 4 + 3 * np.stack(np.meshgrid(*[np.arange(n)] * 3,
-                                         indexing="ij"), -1).reshape(-1, 3)
-    base = np.repeat(sites, 3, axis=0)
-    d = 10.0 ** rng.uniform(-4.0, np.log10(0.3), base.shape)
-    first = np.repeat(rng.random(sites.shape) < 0.5, 3, axis=0)
-    fx = np.where(first, 1.5 - d, 0.5 + d)
-    pts = ((base + fx) * (2.0 / g)).astype(np.float32)
-    nrm = rng.normal(size=(len(pts), 3))
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    vals = np.concatenate([rng.normal(size=(len(pts), 3)), nrm], 1)
-    return pts, vals.astype(np.float32)
 
 
-def splat_n_max(pts, g: int, bounds_check: bool) -> int:
-    """The most points whose base cell is one cell, by K4's index rule."""
-    import torch
-    from mpmavatar_tpu_torch.ops import transfer as ktransfer
-    base = torch.floor(pts * g / 2.0 - 0.5).long()
-    flat = ktransfer.flat_indices(base, g)
-    flat = torch.where(flat < 0, flat + g ** 3, flat)
-    keep = (flat >= 0) & (flat < g ** 3)
-    if bounds_check:
-        keep &= torch.all((base >= 0) & (base < g - 3), dim=1)[:, None]
-    return int(torch.bincount(flat[keep]).max()) if bool(keep.any()) else 0
 
 
-def splat_coverage(out, ref, vals) -> dict:
-    """K4's output as K5 reads it, kernel (``out``) against plain
-    (``ref``): the cells covered (grid_w > COVER_EPS) by one and not the
-    other, those of them whose plain weight lies within a factor
-    COVER_BAND of COVER_EPS (``threshold``), and on the cells both cover
-    the largest error of acc[:, :3] / w over max |values[:, :3]|
-    (``velocity``) and, with CH = 6, of the normal acc[:, 3:6] /
-    max(|acc[:, 3:6]|, 1e-12) over its conditioning, max(1, w /
-    max(|acc[:, 3:6]|, 1e-12)) (``normal``)."""
-    import torch
-    (acc, w), (acc_r, w_r) = out, ref
-    cov, cov_r = w > COVER_EPS, w_r > COVER_EPS
-    differ = cov != cov_r
-    band = ((w_r >= COVER_EPS / COVER_BAND)
-            & (w_r <= COVER_EPS * COVER_BAND))
-    both = cov & cov_r
-    res = {"covered": int(cov_r.sum()), "differ": int(differ.sum()),
-           "threshold": int((differ & band).sum()),
-           "velocity": 0.0, "normal": 0.0}
-    if not bool(both.any()):
-        return res
-    a, b, wa, wb = acc[both], acc_r[both], w[both, None], w_r[both, None]
-    vmax = max(float(vals[:, :3].abs().max()), 1e-30)
-    res["velocity"] = float((a[:, :3] / wa - b[:, :3] / wb).abs().max()) \
-        / vmax
-    if acc.shape[1] == 6:
-        na = a[:, 3:].norm(dim=1, keepdim=True).clamp_min(1e-12)
-        nb = b[:, 3:].norm(dim=1, keepdim=True).clamp_min(1e-12)
-        cond = torch.clamp_min(wb / nb, 1.0)
-        res["normal"] = float(((a[:, 3:] / na - b[:, 3:] / nb).abs()
-                               / cond).max())
-    return res
 
 
-def k1_inputs(state, model, n_el, gen):
-    """K1's inputs on a cloth state: d perturbed (off the return map's
-    R33 = 1 branch point, where a flat cloth sits) and a tenth of the
-    elements unselected, drawn from ``gen``."""
-    import torch
-    dev = state.x.device
-    d = state.d + 0.02 * torch.randn((n_el, 3, 3), generator=gen, device=dev)
-    d[:, :, 2] *= 0.5 + 1.1 * torch.rand((n_el, 1), generator=gen,
-                                         device=dev)
-    sel_e = (torch.rand((n_el,), generator=gen, device=dev) > 0.1).float()
-    return (d, state.R_inv, state.vol[:n_el], sel_e, model.mu[:n_el],
-            model.lam[:n_el], model.gamma[:n_el], model.kappa[:n_el],
-            model.friction_coeff)
 
 
-def sand_set(n, dev, all_selected=False):
-    """K8's tip / cone / reflected set of ``n`` particles, seeded: F_trial
-    I + 0.15 N(0, 1), its first eighth scaled by 1.5 (tr(eps) > 0: the
-    tip), the next eighth by 0.5 (compression: the cone) and 100 more
-    reflected (det F < 0); F_prev I + 0.05 N(0, 1); four fifths of the
-    particles selected, or all of them with ``all_selected`` (path B's
-    case); mu 400, lam 600, alpha 0.3."""
-    import torch
-    g_cpu = torch.Generator().manual_seed(7)
-    f_set = torch.eye(3) + 0.15 * torch.randn((n, 3, 3), generator=g_cpu)
-    f_set[: n // 8] *= 1.5                    # tr(eps) > 0: tip
-    f_set[n // 8: n // 4] *= 0.5              # compression: cone
-    f_set[n // 4: n // 4 + 100] = torch.diag(torch.tensor(
-        [1.0, 1.0, -1.0])) @ f_set[n // 4: n // 4 + 100]
-    f_prev = torch.eye(3) + 0.05 * torch.randn((n, 3, 3), generator=g_cpu)
-    sel = (torch.rand(n, generator=g_cpu) > 0.2).float()
-    if all_selected:
-        sel = torch.ones(n)
-    return tuple(a.to(dev) for a in (
-        f_set, f_prev, sel, torch.full((n,), 400.0),
-        torch.full((n,), 600.0), torch.tensor(0.3)))
 
 
 # the FP32 operations counted by plain_ops: each add, subtract, multiply,
@@ -1011,84 +663,43 @@ def sand_ops(plain_count: float, branches) -> float:
                for k, extra in zip(branches[1:], SAND_BRANCH_OPS))
 
 
-def random_order(cfg):
-    """A seeded random order of a cloth's particles: elements among
-    elements, vertices among vertices (CPU int64)."""
-    import torch
-    g_perm = torch.Generator().manual_seed(11)
-    nnv = cfg.n_no_vertices
-    return torch.cat([torch.randperm(nnv, generator=g_perm),
-                      nnv + torch.randperm(cfg.n_vertices,
-                                           generator=g_perm)])
 
 
-def drive(name, solver, state, model, scene, frames, substeps, expect,
-          stats=None):
+def drive(name, solver, state, model, scene, frames, substeps, expect):
     """One path: ``frames`` x ``substeps`` substeps with the launch
     counters reset just before and read just after; each kernel in
     ``expect`` (name -> launches per substep) must have launched that
     many times and no other kernel at all; the state must be finite after
     each frame.  ``scene`` is the frame inputs, or a function of the frame
-    index that gives them.  Then a profile of PROFILE_SUBSTEPS more (with
-    the last frame's inputs: replays of the graph the frames captured;
-    a one-substep frame as the profiler's discarded warm-up),
+    index that gives them.  Then PROFILE_SUBSTEPS more under the profiler
+    (with the last frame's inputs: replays of the graph the frames
+    captured; a one-substep frame as the profiler's discarded warm-up),
     in whose device trace each kernel of ``expect`` must have run that
     many times a substep (``check_traced``: on the graph route the
-    counters add the capture's launches once per replay), and whose
-    device busy ms, kernels per substep and idle share go into ``stats``
-    when given.  Returns (final state, time, the trace's launches over
-    PROFILE_SUBSTEPS substeps, steady ms/substep)."""
+    counters add the capture's launches once per replay).  Returns (final
+    state, time, the trace's launches over PROFILE_SUBSTEPS substeps)."""
     import torch
     from mpmavatar_tpu_torch.ops import _build
     inputs = scene if callable(scene) else (lambda f: scene)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    t, frame_s = 0.0, []
+    t = 0.0
     for f in range(frames):
-        t_f = time.perf_counter()
         state, t = solver.frame(state, model, DT, substeps, t, **inputs(f))
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t_f)
         solver.check_finite(state, f"{name}, frame {f}")
     launches = _build.launch_counts()
     n_sub = frames * substeps
     want = {k: per * n_sub for k, per in expect.items()}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
-    ms_sub = 1e3 * frame_s[-1] / substeps
-    print(f"{name}: launches {launches} in {n_sub} substeps; frame wall "
-          f"times {[round(s, 4) for s in frame_s]} s; steady frame "
-          f"{ms_sub:.4f} ms/substep = {1e3 / ms_sub:.1f} substeps/s")
-
-    busy_s, prof_wall, rows = profile_device(
+    print(f"{name}: launches {launches} in {n_sub} substeps")
+    rows = profile_device(
         lambda: solver.frame(state, model, DT, PROFILE_SUBSTEPS, t,
                              **inputs(frames - 1)),
         warm=lambda: solver.frame(state, model, DT, 1, t,
                                   **inputs(frames - 1)))
-    n = PROFILE_SUBSTEPS
-    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                      for key, us, calls in rows)
-    (OUT / f"chip_smoke_profile_{name}.txt").write_text(table + "\n")
-    traced = check_traced(name, rows, expect, n)
-    if not rows:
-        print(f"{name} profile: the profiler recorded no device time; "
-              "device busy share not measured")
-    else:
-        idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
-        kernels = sum(r[2] for r in rows) / n
-        print(f"{name} profile of {n} substeps: device busy "
-              f"{1e3 * busy_s / n:.4f} ms/substep in "
-              f"{kernels:.1f} kernels/substep, "
-              f"{1e3 * prof_wall / n:.4f} ms/substep profiled wall; "
-              f"against the unprofiled steady frame the device is idle "
-              f"{idle:.1f}% of the time")
-        if stats is not None:
-            stats.update(busy_ms=1e3 * busy_s / n, kernels=kernels,
-                         idle_pct=idle)
-    for key, us, calls in rows[:12]:
-        print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
-              f"{key[:90]}")
-    return state, t, traced, ms_sub
+    traced = check_traced(name, rows, expect, PROFILE_SUBSTEPS)
+    return state, t, traced
 
 
 def mesh_branch_cells(solver, state, model, scene, t) -> tuple:
@@ -1327,7 +938,7 @@ def render_path(dev, check) -> dict:
     just before and read just after, K6 against its plain version on the
     scenes' own worklists, the kernel-path frame against the plain-path
     frame beside a wrong path, and the analytic single gaussian.  Returns
-    scene -> (steady ms/frame, launches)."""
+    (scene -> launches, big_splats' phase-2 call)."""
     import numpy as np
     import torch
     from unittest import mock
@@ -1339,17 +950,10 @@ def render_path(dev, check) -> dict:
     nc = 3
     scenes = {}
     for name in bench_render.SCENES:
-        t0 = time.perf_counter()
         frame, info = bench_render.make_scene(name, dev)
-        torch.cuda.synchronize()
-        setup_s = time.perf_counter() - t0
         _build.reset_launch_counts()
-        frame_s = []
         for _ in range(RENDER_FRAMES):
-            t_f = time.perf_counter()
             img, out = frame()
-            torch.cuda.synchronize()
-            frame_s.append(time.perf_counter() - t_f)
         launches = _build.launch_counts()
         want = {kcomp.KERNEL: 2 * RENDER_FRAMES}
         if launches != want:
@@ -1360,33 +964,15 @@ def render_path(dev, check) -> dict:
                 not bool(torch.isfinite(img).all()):
             raise AssertionError(f"render {name}: image {tuple(img.shape)} "
                                  "not finite or of the wrong shape")
-        ms = 1e3 * frame_s[-1]
         counts = out["tile_counts"]
         print(f"render {name} ({info['width']}x{info['height']}, "
-              f"{info['gaussians']} gaussians): set-up {setup_s:.2f} s; "
-              f"launches {launches} in {RENDER_FRAMES} frames; frame wall "
-              f"times {[round(1e3 * f, 3) for f in frame_s]} ms; "
-              f"{counts.numel()} tiles, {int(counts.sum())} instances "
+              f"{info['gaussians']} gaussians): launches {launches} in "
+              f"{RENDER_FRAMES} frames; {counts.numel()} tiles, "
+              f"{int(counts.sum())} instances "
               f"(most on one tile {int(counts.max())}), phase-2 items "
               f"{int(out['n_items'])} of work_cap {info['work_cap']}; "
               f"alpha mean {float(out['alpha'].mean()):.4f}")
-        busy_s, prof_wall, rows = profile_device(frame)
-        (OUT / f"chip_smoke_profile_render_{name}.txt").write_text(
-            "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                      for key, us, calls in rows) + "\n")
-        if rows:
-            idle = 100 * max(0.0, 1 - busy_s / (ms * 1e-3))
-            print(f"  profile of one frame: device busy {1e3 * busy_s:.4f} "
-                  f"ms in {sum(r[2] for r in rows)} kernels, "
-                  f"{1e3 * prof_wall:.4f} ms profiled wall; against the "
-                  f"unprofiled steady frame ({ms:.4f} ms) the device is "
-                  f"idle {idle:.1f}% of the time")
-            for key, us, calls in rows[:8]:
-                print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
-        else:
-            print("  the profiler recorded no device time; device busy "
-                  "share not measured")
-        scenes[name] = dict(frame=frame, img=img, out=out, ms=ms,
+        scenes[name] = dict(frame=frame, img=img, out=out,
                             launches=launches, calls=composite_calls(frame))
 
     # K6 against its plain version on the scenes' own worklists
@@ -1494,7 +1080,7 @@ def render_path(dev, check) -> dict:
     if max(errs) > ANALYTIC_TOL:
         raise AssertionError("the single gaussian disagrees with the "
                              "analytic alpha")
-    return ({name: (sc["ms"], sc["launches"]) for name, sc in scenes.items()},
+    return ({name: sc["launches"] for name, sc in scenes.items()},
             scenes["big_splats"]["calls"][1])
 
 
@@ -1503,7 +1089,7 @@ def train_path(dev, check, big_call) -> tuple:
     reset just before and read just after, K7 against its plain version,
     the step against the plain-compositor step beside a wrong path, one
     densification pass, and the loss falling toward a rendered GT.
-    Returns (steady ms/step, launches)."""
+    Returns the launches."""
     from unittest import mock
     import numpy as np
     import torch
@@ -1513,11 +1099,9 @@ def train_path(dev, check, big_call) -> tuple:
     from mpmavatar_tpu_torch.render import bench_render, rasterizer
     from mpmavatar_tpu_torch.train import appearance as tapp
     from mpmavatar_tpu_torch.train import bench_appearance as bapp
-    from mpmavatar_tpu_torch.utils import losses
 
     nc = 3
     raster = bench_render.AVATAR_RASTER
-    t0 = time.perf_counter()
     avatar, params, n_faces, cam, gt_rgb, gt_msk, ao = bapp.build(dev)
     opt = OptimizationParams()
     optimizer = tapp.make_optimizer(opt, bapp.EXTENT, params)
@@ -1526,16 +1110,10 @@ def train_path(dev, check, big_call) -> tuple:
     loss_and_grads = tapp.make_loss_and_grads(avatar, opt, bapp.ACTIVE_SH,
                                               False, **raster)
     args = (0, 0, cam[0], gt_rgb, gt_msk, ao, cam[1], cam[2])
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    step_s, losses_seen = [], []
+    losses_seen = []
     for _ in range(TRAIN_STEPS):
-        t_s = time.perf_counter()
         loss, aux = step(params, *args)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t_s)
         losses_seen.append(float(loss))
         bench_render.check_overflow(aux, "train step")
     launches = _build.launch_counts()
@@ -1544,36 +1122,13 @@ def train_path(dev, check, big_call) -> tuple:
         raise AssertionError(f"train: launches {launches}, expected {want}")
     if not all(np.isfinite(losses_seen)):
         raise AssertionError(f"train: losses {losses_seen}")
-    peak = torch.cuda.max_memory_allocated()
-    steady = [1e3 * s for s in step_s[WARM_STEPS:]]
-    ms = statistics.median(steady)
     print(f"train step (1500x1000, {params.splats.capacity} splats, "
-          f"{n_faces} alive): set-up {setup_s:.2f} s; launches {launches} "
-          f"in {TRAIN_STEPS} steps; step wall times "
-          f"{[round(1e3 * s, 3) for s in step_s]} ms; steady step (median "
-          f"of steps {WARM_STEPS + 1}-{TRAIN_STEPS}) {ms:.4f} ms, range "
-          f"{min(steady):.4f}-{max(steady):.4f} ms; losses "
-          f"{[round(v, 6) for v in losses_seen]}; phase-2 items "
-          f"{int(aux['n_items'])} of work_cap {raster['work_cap']}; peak "
-          f"allocated {peak / 2 ** 30:.3f} GiB")
-    busy_s, prof_wall, rows = profile_device(lambda: step(params, *args))
-    (OUT / "chip_smoke_profile_train_step.txt").write_text(
-        "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                  for key, us, calls in rows) + "\n")
-    if rows:
-        idle = 100 * max(0.0, 1 - busy_s / (ms * 1e-3))
-        print(f"  profile of one step: device busy {1e3 * busy_s:.4f} ms in "
-              f"{sum(r[2] for r in rows)} kernels, {1e3 * prof_wall:.4f} ms "
-              f"profiled wall; against the unprofiled steady step "
-              f"({ms:.4f} ms) the device is idle {idle:.1f}% of the time")
-        for key, us, calls in rows[:15]:
-            print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
-    else:
-        print("  the profiler recorded no device time; device busy share "
-              "not measured")
+          f"{n_faces} alive): launches {launches} in {TRAIN_STEPS} steps; "
+          f"losses {[round(v, 6) for v in losses_seen]}; phase-2 items "
+          f"{int(aux['n_items'])} of work_cap {raster['work_cap']}")
 
-    # the device time of the indexing backwards (scatter-adds of the
-    # gathers' gradients), by operator and input shapes; index_put_ runs
+    # the indexing backwards (scatter-adds of the gathers' gradients) that
+    # ran on the device, by operator and input shapes; index_put_ runs
     # through _index_put_impl_, which alone is counted
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1588,19 +1143,9 @@ def train_path(dev, check, big_call) -> tuple:
         if "_index_put_impl_" in e.key and us > 0:
             idx_rows.append((float(us), e.key, str(e.input_shapes)[:120],
                              int(e.count)))
-    idx_rows.sort(reverse=True)
     print("  indexing backwards (index_put with accumulate) by input shapes:")
-    for us, key, shapes, count in idx_rows[:8]:
-        print(f"  {us:10.1f} us {count:3d}x  {key} {shapes}")
-
-    # SSIM's share: forward, and forward + backward, at the frame's shape
-    img = gt_rgb.flip(-1).contiguous().requires_grad_(True)
-    ssim_ms = event_ms(lambda: losses.ssim(img, gt_rgb), reps=3, inner=5)
-    ssim_bwd_ms = event_ms(lambda: torch.autograd.grad(
-        losses.ssim(img, gt_rgb), img), reps=3, inner=5)
-    print(f"  SSIM at 3x1000x1500 (band products, ~112 GFLOP forward): "
-          f"forward {ssim_ms:.4f} ms, forward + backward {ssim_bwd_ms:.4f} "
-          f"ms")
+    for _, key, shapes, count in idx_rows:
+        print(f"  {count:3d}x  {key} {shapes}")
 
     # K7 against its plain version on the step's own worklists
     calls = composite_calls(lambda: loss_and_grads(params, *args))
@@ -1612,11 +1157,7 @@ def train_path(dev, check, big_call) -> tuple:
     wl_rows = [r for r in idx_rows if any(w in r[2] for w in wl_shapes)]
     print(f"  index backward of the worklists' (W, C) ids "
           f"{[tuple(ids.shape) for _, ids, _, _ in calls]}: "
-          f"{sum(r[0] for r in wl_rows) / 1e3:.4f} ms in {len(wl_rows)} "
-          f"operators (the gather outside the kernels took 29.12 + 40.32 "
-          f"= 69.44 ms on an H100 80GB HBM3 at 700 W); every index "
-          f"backward of the step {sum(r[0] for r in idx_rows) / 1e3:.4f} "
-          f"ms")
+          f"{len(wl_rows)} operators of the step's {len(idx_rows)}")
     if wl_rows:
         raise AssertionError(f"the step still scatters the worklists' "
                              f"gradients through index_put: {wl_rows}")
@@ -1718,7 +1259,7 @@ def train_path(dev, check, big_call) -> tuple:
     if not fall > max(fall_w, 0.0):
         raise AssertionError(f"the L1 fell by {fall:.4e} through K7, not "
                              f"more than the wrong path's {fall_w:.4e}")
-    return ms, launches
+    return launches
 
 
 def wrong_k7(mode: str):
@@ -1812,8 +1353,8 @@ def stretched(x, d):
 
 
 def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
-              per_sub) -> float:
-    """Phase 8, the differentiated substep; returns its ms per substep."""
+              per_sub) -> None:
+    """Phase 8, the differentiated substep."""
     import torch
     from mpmavatar_tpu_torch.core import linalg
     from mpmavatar_tpu_torch.ops import _autograd, _build
@@ -1826,77 +1367,33 @@ def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
 
     def run(slv, st0, m0):
         """GRAD_SUBSTEPS substeps and the loss's gradient: (gradients,
-        d after each substep, forward s, backward s)."""
+        d after each substep)."""
         device = st0.x.device
-        sync = torch.cuda.synchronize if device.type == "cuda" else (
-            lambda: None)
         leaves = [a.detach().clone().requires_grad_(True)
                   for a in (m0.mu, m0.lam, st0.mass, st0.R_inv)]
         x, d = stretched(st0.x, st0.d)
         s = dataclasses.replace(st0, x=x, d=d, v=v0.to(device),
                                 mass=leaves[2], R_inv=leaves[3])
         m = dataclasses.replace(m0, mu=leaves[0], lam=leaves[1])
-        sync()
-        t0, t, ds = time.perf_counter(), 0.0, []
+        t, ds = 0.0, []
         for _ in range(GRAD_SUBSTEPS):
             s, t = slv.frame(s, m, DT, 1, t)
             ds.append(s.d.detach())
         loss = (s.x[E:] * weights.to(device)).sum()
-        sync()
-        t1 = time.perf_counter()
-        if loss.requires_grad:
-            grads = torch.autograd.grad(loss, leaves)
-        else:           # no path to a leaf: every one ran through a kernel
-            grads = [torch.zeros_like(a) for a in leaves]
-        sync()
-        return grads, ds, t1 - t0, time.perf_counter() - t1
+        if not loss.requires_grad:  # no path to a leaf: all ran in kernels
+            return [torch.zeros_like(a) for a in leaves], ds
+        return torch.autograd.grad(loss, leaves), ds
 
-    run(solver, state0, model)                     # warm-up
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    grads, ds, fwd_s, bwd_s = run(solver, state0, model)
+    grads, ds = run(solver, state0, model)
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     want = {k: per * GRAD_SUBSTEPS for k, per in per_sub.items()}
     if launches != want:
         raise AssertionError(f"differentiated substep: launches {launches}, "
                              f"expected {want}")
-    busy_s, prof_wall, rows = profile_device(
-        lambda: run(solver, state0, model))
-    ms = 1e3 * (fwd_s + bwd_s) / GRAD_SUBSTEPS
     print(f"differentiated substep (cloth drop, {GRAD_SUBSTEPS} substeps "
-          f"forward and back): launches {launches}; {ms:.4f} ms per "
-          f"differentiated substep (forward {1e3 * fwd_s / GRAD_SUBSTEPS:.4f},"
-          f" backward {1e3 * bwd_s / GRAD_SUBSTEPS:.4f}: the backward's share "
-          f"{100 * bwd_s / (fwd_s + bwd_s):.1f}%); peak allocated "
-          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} GiB above "
-          f"the {base / 2 ** 30:.3f} GiB held before)")
-    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                      for key, us, calls in rows)
-    (OUT / "chip_smoke_profile_grad_substep.txt").write_text(table + "\n")
-    if rows:
-        print(f"differentiated substep profile: device busy "
-              f"{1e3 * busy_s / GRAD_SUBSTEPS:.4f} ms/substep in "
-              f"{sum(r[2] for r in rows) / GRAD_SUBSTEPS:.1f} "
-              f"kernels/substep, {1e3 * prof_wall / GRAD_SUBSTEPS:.4f} "
-              f"ms/substep profiled wall; against the unprofiled run the "
-              f"device is idle "
-              f"{100 * max(0.0, 1 - busy_s * 1e3 / GRAD_SUBSTEPS / ms):.1f}% "
-              f"of the time")
-        for key, us, calls in rows[:8]:
-            print(f"  {us / GRAD_SUBSTEPS:10.2f} us/substep "
-                  f"{calls / GRAD_SUBSTEPS:6.1f}/substep  {key[:90]}")
-    else:
-        print("differentiated substep profile: the profiler recorded no "
-              "device time; device busy not measured")
-
-    grads_cpu, ds_cpu, fwd_c, bwd_c = run(solver_cpu, state0.to("cpu"),
-                                          model_cpu)
-    print(f"the plain path on the CPU: {1e3 * (fwd_c + bwd_c):.1f} ms for "
-          f"{GRAD_SUBSTEPS} differentiated substeps (backward "
-          f"{1e3 * bwd_c:.1f} ms)")
+          f"forward and back): launches {launches}")
+    grads_cpu, ds_cpu = run(solver_cpu, state0.to("cpu"), model_cpu)
     # the kernels' outputs detached, as before they had a backward
     real_call = _autograd.call
     _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
@@ -1939,7 +1436,6 @@ def grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
     if not min(bad.values()) > SUBSTEP_GRAD_TOL:
         raise AssertionError("the gradient limit does not separate the "
                              "wrong path")
-    return ms
 
 
 def material_trainer(dev, grid, frames, substeps, seed=0, contact=False):
@@ -1981,8 +1477,8 @@ def material_trainer(dev, grid, frames, substeps, seed=0, contact=False):
 
 
 def material_path(dev, per_sub) -> tuple:
-    """Phase 9, the material train step; returns (ms per step, launches
-    per step)."""
+    """Phase 9, the material train step; returns its launches per
+    step."""
     import numpy as np
     import torch
     from mpmavatar_tpu_torch.core import stepping
@@ -2001,24 +1497,10 @@ def material_path(dev, per_sub) -> tuple:
             and abs(dt - DT) < 1e-12):
         raise AssertionError("material train step: not the production shape")
 
-    def step_s():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _ = tr.train_one_step()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0, loss
-
-    # one untimed step first (the allocator's growth, each shape's first
-    # use), as bench_material.run_bench does; the counted steps follow
-    warm_ms = 1e3 * step_s()[0]
     init = tr._params_now()
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    steps = [step_s() for _ in range(TRAIN_STEPS_M)]
+    losses = [tr.train_one_step()[0] for _ in range(TRAIN_STEPS_M)]
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     # each substep's kernels run in the forward, in its frame's recompute
     # and in its own recompute (frame and substep both checkpointed); the
     # backwards launch none
@@ -2026,64 +1508,15 @@ def material_path(dev, per_sub) -> tuple:
     if launches != want:
         raise AssertionError(f"material train step: launches {launches}, "
                              f"expected {want}")
-    ms = [1e3 * s for s, _ in steps]
-    losses = [loss for _, loss in steps]
     params = tr._params_now()
-    med = statistics.median(ms)
     print(f"material train step: launches {launches} in {TRAIN_STEPS_M} "
-          f"steps (3 x per substep x {n_sub} substeps each); "
-          f"{med:.4f} ms/step median ({min(ms):.4f}-{max(ms):.4f}; the "
-          f"untimed warm-up step before them {warm_ms:.4f} ms), "
-          f"{med / n_sub:.4f} ms per differentiated substep; losses "
+          f"steps (3 x per substep x {n_sub} substeps each); losses "
           + ", ".join(f"{x:.6e}" for x in losses) + "; D, E, H "
-          + ", ".join(f"{init[k]:.6f} -> {params[k]:.6f}" for k in "DEH")
-          + f"; peak allocated {peak / 2 ** 30:.3f} GiB "
-          f"({(peak - base) / 2 ** 30:.3f} GiB above the "
-          f"{base / 2 ** 30:.3f} GiB held before)")
+          + ", ".join(f"{init[k]:.6f} -> {params[k]:.6f}" for k in "DEH"))
     if not all(np.isfinite(losses)) or not all(
             params[k] != init[k] for k in "DEH"):
         raise AssertionError("material train step: a loss is not finite or "
                              "a parameter did not move")
-    # the step's parts, once more at the same parameters: the forward
-    # under grad, then autograd (both recomputes and the twins'
-    # backwards); and the forward alone, without grad
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    loss = tr.rollout_loss(tr.params)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    torch.autograd.grad(loss, [tr.params[k] for k in "DEH"])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    with torch.no_grad():
-        tr.rollout_loss(tr.params)
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    fwd_ms, bwd_ms, plain_fwd_ms = (1e3 * (t1 - t0), 1e3 * (t2 - t1),
-                                    1e3 * (t3 - t2))
-    print(f"material train step parts: forward under grad {fwd_ms:.4f} ms, "
-          f"autograd (two recomputes and the backwards) {bwd_ms:.4f} ms, "
-          f"forward without grad {plain_fwd_ms:.4f} ms; grad/forward "
-          f"{(fwd_ms + bwd_ms) / plain_fwd_ms:.2f}; the backwards alone, "
-          f"taking each recompute as one forward under grad, "
-          f"{100 * (bwd_ms - 2 * fwd_ms) / (fwd_ms + bwd_ms):.1f}% of the "
-          f"step's rollout")
-    busy_s, prof_wall, rows = profile_device(tr.train_one_step)
-    table = "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                      for key, us, calls in rows)
-    (OUT / "chip_smoke_profile_material_step.txt").write_text(table + "\n")
-    if rows:
-        print(f"material train step profile: device busy "
-              f"{1e3 * busy_s:.4f} ms/step in {sum(r[2] for r in rows)} "
-              f"kernels/step, {1e3 * prof_wall:.4f} ms profiled wall; "
-              f"against the unprofiled median the device is idle "
-              f"{100 * max(0.0, 1 - 1e3 * busy_s / med):.1f}% of the time")
-        for key, us, calls in rows[:8]:
-            print(f"  {us / 1e3:10.4f} ms/step {calls:7d}/step  {key[:90]}")
-    else:
-        print("material train step profile: the profiler recorded no device "
-              "time; device busy not measured")
-
     # the finite-difference step's probe 0 against the autodiff forward
     ad_loss = float(tr.rollout_loss(tr.params).detach())
     fd_loss, fd_params = tr.train_one_step_finite_diff()
@@ -2099,13 +1532,12 @@ def material_path(dev, per_sub) -> tuple:
     # stage-4 simulate: the trained parameters, the pinned row turning
     jv = lambda i: (train[i + 1, :MAT_NX] - train[i, :MAT_NX]) * (
         1.0 / (DT * MAT_SUBSTEPS))
-    t0 = time.perf_counter()
     frames = tr.simulate(train[0], np.zeros_like(train[0]), body,
                          np.zeros_like(body), MAT_FRAMES, joint_velo_fn=jv)
     move = float(np.abs(frames[-1] - train[0]).max())
-    print(f"simulate: {MAT_FRAMES} frames in {time.perf_counter() - t0:.2f} "
-          f"s, finite {all(np.isfinite(f).all() for f in frames)}, the "
-          f"cloth moved up to {move:.3e} (at least {SIM_MOVE_MIN:.0e}), "
+    print(f"simulate: {MAT_FRAMES} frames, finite "
+          f"{all(np.isfinite(f).all() for f in frames)}, the cloth moved "
+          f"up to {move:.3e} (at least {SIM_MOVE_MIN:.0e}), "
           f"the pinned row turning at {MAT_OMEGA} rad/s")
     if not all(np.isfinite(f).all() for f in frames) or not \
             move >= SIM_MOVE_MIN:
@@ -2126,10 +1558,8 @@ def material_path(dev, per_sub) -> tuple:
     # order)
     g_again = grads(material_trainer(dev, MAT_GRAD_GRID, 1,
                                      MAT_GRAD_SUBSTEPS)[0])
-    t0 = time.perf_counter()
     g_cpu = grads(material_trainer("cpu", MAT_GRAD_GRID, 1,
                                    MAT_GRAD_SUBSTEPS)[0])
-    cpu_s = time.perf_counter() - t0
     real_call = _autograd.call
     _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
     try:
@@ -2150,8 +1580,8 @@ def material_path(dev, per_sub) -> tuple:
     sound, bad = rel(g_card, g_cpu), rel(g_wrong, g_cpu)
     share, repeat = rel(g_cut, g_card), rel(g_again, g_card)
     print(f"material gradient ({MAT_GRAD_SUBSTEPS} substeps at "
-          f"{MAT_GRAD_GRID}^3) against the plain path on the CPU (its "
-          f"rollout and backward {cpu_s:.1f} s): d/dD, d/dE, d/dH card "
+          f"{MAT_GRAD_GRID}^3) against the plain path on the CPU: d/dD, "
+          f"d/dE, d/dH card "
           + ", ".join(f"{g:.6e}" for g in g_card) + ", cpu "
           + ", ".join(f"{g:.6e}" for g in g_cpu) + "; rel err "
           + ", ".join(f"{e:.3e}" for e in sound)
@@ -2178,11 +1608,8 @@ def material_path(dev, per_sub) -> tuple:
         return material_trainer(device, MAT_GRAD_GRID, 1, MAT_GRAD_SUBSTEPS,
                                 contact=True)[0]
 
-    t_c3 = time.perf_counter()
     g_card_c = grads(with_contact(dev))
-    t0 = time.perf_counter()
     g_cpu_c = grads(with_contact("cpu"))
-    cpu_c_s = time.perf_counter() - t0
     _autograd.call = lambda name, kernel, twin, *args: kernel(*args)
     try:
         g_wrong_c = grads(with_contact(dev))
@@ -2193,15 +1620,14 @@ def material_path(dev, per_sub) -> tuple:
     print(f"material gradient in contact (C3; the body sphere at "
           f"{MAT_CONTACT_CENTER}, r {MAT_CONTACT_R}, rising at "
           f"{MAT_CONTACT_V} m/s; {MAT_GRAD_SUBSTEPS} substeps at "
-          f"{MAT_GRAD_GRID}^3; the CPU side {cpu_c_s:.1f} s): d/dD, d/dE, "
+          f"{MAT_GRAD_GRID}^3): d/dD, d/dE, "
           f"d/dH card " + ", ".join(f"{g:.6e}" for g in g_card_c) + ", cpu "
           + ", ".join(f"{g:.6e}" for g in g_cpu_c) + "; rel err "
           + ", ".join(f"{e:.3e}" for e in sound_c)
           + f" (tol {SUBSTEP_GRAD_TOL:.0e}); wrong path (the kernels' "
           f"outputs detached) " + ", ".join(f"{e:.3e}" for e in bad_c)
           + "; the contact moved the CPU gradient by "
-          + ", ".join(f"{e:.3e}" for e in contact_c)
-          + f"; these readings took {time.perf_counter() - t_c3:.1f} s")
+          + ", ".join(f"{e:.3e}" for e in contact_c))
     if not min(contact_c) > SUBSTEP_GRAD_TOL:
         raise AssertionError("C3: the contact does not move the material "
                              "gradient beyond the tolerance")
@@ -2211,28 +1637,14 @@ def material_path(dev, per_sub) -> tuple:
     if not min(bad_c) > SUBSTEP_GRAD_TOL:
         raise AssertionError("C3: the gradient limit does not separate the "
                              "wrong path")
-    per_step = {k: v // TRAIN_STEPS_M for k, v in launches.items()}
-    return med, per_step
+    return {k: v // TRAIN_STEPS_M for k, v in launches.items()}
 
 
-def timed_ms(fn, reps: int = 3) -> float:
-    """Median host-clock ms of ``fn`` over ``reps`` calls, each ending in
-    a synchronize."""
-    import torch
-    runs = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        runs.append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(runs)
-
-
-def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
+def posed_body_path(dev, scene, body, body_cpu, per_sub) -> dict:
     """Phase 10, the posed body: ``scene`` is sim/pose_playback's scene on
     the card, posed by ``body``; ``body_cpu`` is the same archive on the
-    CPU.  Returns (steady ms per substep, launches)."""
+    CPU.  Returns the launches in the device trace of its PROFILE_SUBSTEPS
+    profiled substeps."""
     import numpy as np
     import torch
     from mpmavatar_tpu_torch.avatar import (deform_tracked_to_poses, lbs,
@@ -2240,7 +1652,6 @@ def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
     from mpmavatar_tpu_torch.core.types import build_cloth
     from mpmavatar_tpu_torch.sim import pose_playback as pp
 
-    t_phase = time.perf_counter()
     n_verts, n_faces = body.v_template.shape[0], body.faces.shape[0]
     parents = body.parents
     print(f"posed body: the synthetic SMPL-X archive, {n_verts} vertices, "
@@ -2264,13 +1675,7 @@ def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
     first_c, poses_c = on(first, "cpu"), on(poses, "cpu")
     cloth_c = torch.as_tensor(build_cloth(NX, NX, y0=pp.CLOTH_Y)[0])
     cloth_d = cloth_c.to(dev)
-    fps = 1.0 / (SUBSTEPS * DT)
-
-    # posing the sequence on the card, and the KNN's share of it
-    pose_ms = timed_ms(lambda: pp.prepare_pose_playback(
-        body, first_d, poses_d, cloth_d, fps=fps))
     body0_d = smplx_forward(body, first_d).vertices[0]
-    knn_ms = timed_ms(lambda: lbs.knn(cloth_d, body0_d, pp.KNN_K))
 
     # the avatar on the card against the CPU
     out_d, out_c = smplx_forward(body, poses_d), smplx_forward(body_cpu,
@@ -2307,14 +1712,9 @@ def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
     body_move = float((scene.playback["smplx"][1:]
                        - scene.playback["smplx"][:-1]).abs().max())
     speed = float(scene.playback["smplx_velo"].norm(dim=-1).max())
-    stats = {}
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    state, t, launches, ms_sub = drive("posed_body", scene.solver,
-                                       scene.state, scene.model, scene.inputs,
-                                       POSE_FRAMES, SUBSTEPS, per_sub, stats)
-    peak = torch.cuda.max_memory_allocated()
+    state, t, launches = drive("posed_body", scene.solver, scene.state,
+                               scene.model, scene.inputs, POSE_FRAMES,
+                               SUBSTEPS, per_sub)
     changed, covered = mesh_branch_cells(scene.solver, state, scene.model,
                                          scene.inputs(POSE_FRAMES - 1), t)
     print(f"posed body: the body moved up to {body_move:.4e} between poses "
@@ -2368,17 +1768,7 @@ def posed_body_path(dev, smi, scene, body, body_cpu, per_sub) -> tuple:
         if not min(readings[name]["v"]) > PATH_ATOL["v"]:
             raise AssertionError(f"posed body: the v limit does not "
                                  f"separate the wrong path ({name})")
-    print(f"posed body on {smi}: posing the {pp.N_POSES} poses "
-          f"{pose_ms:.4f} ms (host clock, median of 3), of it the KNN "
-          f"{knn_ms:.4f} ms ({100 * knn_ms / pose_ms:.1f}%); steady "
-          f"{ms_sub:.4f} ms/substep; device busy "
-          f"{stats.get('busy_ms', float('nan')):.4f} ms/substep in "
-          f"{stats.get('kernels', float('nan')):.1f} kernels/substep, idle "
-          f"{stats.get('idle_pct', float('nan')):.1f}%; peak allocated "
-          f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} GiB "
-          f"above the {base / 2 ** 30:.3f} GiB held before); phase 10 took "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return ms_sub, launches
+    return launches
 
 
 def cli_argv(cap, model_path, n_cams: int, n_frames: int, iterations: int,
@@ -2393,49 +1783,15 @@ def cli_argv(cap, model_path, n_cams: int, n_frames: int, iterations: int,
             str(iterations), *extra]
 
 
-def run_cli(device, argv, step_ms=None, view_ms=None, patch=None) -> dict:
+def run_cli(device, argv, patch=None) -> dict:
     """The stage-2 CLI's loop (train/train_appearance.py::train) on
-    ``device``; its log.  Given lists, each step's and each test view's
-    host ms (between synchronizes) are appended; ``patch`` replaces
-    segment_composite_gather."""
+    ``device``; its log.  ``patch`` replaces segment_composite_gather."""
     import contextlib
     from unittest import mock
-    import torch
     from mpmavatar_tpu_torch.render import rasterizer
     from mpmavatar_tpu_torch.train import train_appearance as tcli
-    real_step, real_eval = tcli.make_train_step, tcli.evaluate_appearance
-
-    def make_train_step(*a, **k):
-        step = real_step(*a, **k)
-
-        def timed(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = step(*args)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
-            return out
-        return timed
-
-    def evaluate(avatar, params, ds, *a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real_eval(avatar, params, ds, *a, **k)
-        torch.cuda.synchronize()
-        view_ms.append(1e3 * (time.perf_counter() - t0)
-                       / (len(ds.camera_list) * len(ds.frame_index)))
-        return out
-
-    with contextlib.ExitStack() as stack:
-        if step_ms is not None:
-            stack.enter_context(mock.patch.object(tcli, "make_train_step",
-                                                  make_train_step))
-        if view_ms is not None:
-            stack.enter_context(mock.patch.object(
-                tcli, "evaluate_appearance", evaluate))
-        if patch is not None:
-            stack.enter_context(mock.patch.object(
-                rasterizer, "segment_composite_gather", patch))
+    with (mock.patch.object(rasterizer, "segment_composite_gather", patch)
+          if patch is not None else contextlib.nullcontext()):
         return tcli.train(tcli.parse_args(argv), device=device)
 
 
@@ -2456,18 +1812,16 @@ def random_lpips_npz(path) -> None:
     np.savez(path, **{k: v.astype(np.float32) for k, v in arrays.items()})
 
 
-def stage24_path(dev, smi, work) -> tuple:
+def stage24_path(dev, work) -> dict:
     """Phase 11, the stage-2 and stage-4 tools, in the git-ignored
     directory ``work`` (the caller removes it; phase 13 tracks its
-    capture).  Returns (steady ms per CLI step, the CLI run's
-    launches)."""
+    capture).  Returns the CLI run's launches."""
     import numpy as np
     import torch
-    from mpmavatar_tpu_torch.data import OptimizationParams, Scene
+    from mpmavatar_tpu_torch.data import Scene
     from mpmavatar_tpu_torch.data import make_synthetic_actorshq as synth
     from mpmavatar_tpu_torch.ops import _build
     from mpmavatar_tpu_torch.ops import composite as kcomp
-    from mpmavatar_tpu_torch.render import camera_arrays
     from mpmavatar_tpu_torch.render import avatar_model as am
     from mpmavatar_tpu_torch.render.ao import bake_ao, load_uv_chart
     from mpmavatar_tpu_torch.train import appearance as tapp
@@ -2476,10 +1830,8 @@ def stage24_path(dev, smi, work) -> tuple:
     from mpmavatar_tpu_torch.train import train_appearance as tcli
     from mpmavatar_tpu_torch.utils.io import write_obj
 
-    t_phase = time.perf_counter()
     # (a) the capture
     cap = work / "capture"
-    t0 = time.perf_counter()
     summary = synth.make_capture(str(cap), device=dev)
     n_cams, n_frames = summary["n_cams"], summary["n_frames"]
     width, height = summary["wh"]
@@ -2489,28 +1841,20 @@ def stage24_path(dev, smi, work) -> tuple:
     print(f"capture: the synthetic capture ({n_cams} cameras x {n_frames} "
           f"frames, {width}x{height}, {n_faces} faces; the teacher's "
           f"renders up to {summary['max_items']} phase-2 items of "
-          f"{synth.WORK_CAP}, no overflow) in {time.perf_counter() - t0:.2f} "
-          f"s")
+          f"{synth.WORK_CAP}, no overflow)")
     if n_faces != 50244 or (width, height) != (1500, 1000):
         raise AssertionError(f"capture: {n_faces} faces at {width}x{height}")
 
-    # (b) the stage-2 CLI: counted launches, timed steps and test views
+    # (b) the stage-2 CLI: counted launches
     extra = ["--work_cap", str(synth.WORK_CAP), "--preload_device",
              "--test_iterations", "1", str(CLI_ITERS),
              "--densify_from_iter", "0", "--densification_interval",
              str(CLI_DENSIFY), "--densify_until_iter", str(CLI_DENSIFY + 1),
              "--densify_grad_threshold", str(CLI_GRAD_THRESHOLD)]
     argv = cli_argv(cap, work / "model", n_cams, n_frames, CLI_ITERS, extra)
-    step_ms, view_ms = [], []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    log = run_cli(dev, argv, step_ms, view_ms)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
+    log = run_cli(dev, argv)
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     avatar, params = log["avatar"], log["params"]
     cap_slots = params.splats.capacity
     want = {kcomp.KERNEL: 2 * CLI_ITERS, kcomp.KERNEL_BWD: 2 * CLI_ITERS}
@@ -2533,16 +1877,9 @@ def stage24_path(dev, smi, work) -> tuple:
         raise AssertionError(f"stage-2 CLI: densification {dens}, fewest "
                              f"alive on a face {int(per_face.min())}")
     first, last = log["tests"]
-    steady = step_ms[CLI_WARM:]
-    ms_step = statistics.median(steady)
     print(f"stage-2 CLI ({CLI_ITERS} iterations, {cap_slots} splat slots, "
           f"work_cap {synth.WORK_CAP}, --preload_device, test camera "
-          f"{test_cam}): launches {launches}; ms/step median {ms_step:.4f} "
-          f"(range {min(steady):.4f}-{max(steady):.4f}, steps "
-          f"{CLI_WARM + 1}-{CLI_ITERS}; the first two "
-          f"{[round(v, 3) for v in step_ms[:CLI_WARM]]}); ms per test view "
-          f"{[round(v, 3) for v in view_ms]} (the tile path); the loop "
-          f"{cli_s:.2f} s; peak allocated {peak / 2 ** 30:.3f} GiB; "
+          f"{test_cam}): launches {launches}; "
           f"densification at iteration {CLI_DENSIFY}: alive {n_faces} -> "
           f"{dens[0]['alive']}, fewest alive on a face "
           f"{int(per_face.min())}; zero overflow")
@@ -2592,73 +1929,10 @@ def stage24_path(dev, smi, work) -> tuple:
         raise AssertionError("checkpoint: the reloaded avatar renders "
                              "otherwise")
 
-    # the host's ms per sample, with and without the device cache, and a
-    # profile of a few steps at the CLI's shape
-    ds = scene.train_dataset
-    rng = np.random.default_rng(0)
-
-    def per_sample(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(SAMPLE_REPS):
-            fn()
-        torch.cuda.synchronize()
-        return 1e3 * (time.perf_counter() - t0) / SAMPLE_REPS
-
-    plain_ms = per_sample(lambda: tcli.sample_batch(ds, rng, dev))
-    cached = tcli.DeviceCachedDataset(ds, dev)
-    for _ in range(300):
-        cached.sample(rng)
-    cached_ms = per_sample(lambda: cached.sample(rng))
-    opt = OptimizationParams()
-    step = tapp.make_train_step(
-        avatar, opt, tapp.make_optimizer(opt, ds.scene_radius, params), 1,
-        False, tile_capacity=512, work_cap=synth.WORK_CAP)
-    b2 = cached.sample(rng)
-    args = (b2["frame_idx"], b2["camera_idx"], camera_arrays(b2["cam"], dev),
-            b2["rgb"], b2["msk"], avatar.tensor("ao_maps", dev)[
-                b2["frame_idx"]], width, height)
-    busy_s, prof_wall, rows = profile_device(
-        lambda: [step(params, *args) for _ in range(CLI_PROFILE_STEPS)])
-    (OUT / "chip_smoke_profile_stage2_cli.txt").write_text(
-        "\n".join(f"{us:12.1f} us {calls:6d}x  {key}"
-                  for key, us, calls in rows))
-    print(f"stage-2 CLI: host ms per sample {plain_ms:.3f} (decode + copy "
-          f"to the card) vs {cached_ms:.4f} with --preload_device; "
-          f"{CLI_PROFILE_STEPS} profiled steps: device busy "
-          f"{1e3 * busy_s / CLI_PROFILE_STEPS:.3f} ms/step of "
-          f"{1e3 * prof_wall / CLI_PROFILE_STEPS:.3f}, idle "
-          f"{100 * (1 - busy_s / prof_wall):.1f}%; top: "
-          + "; ".join(f"{key[:60]} {us / 1e3:.3f} ms x{calls}"
-                      for key, us, calls in rows[:6]))
-
     # (d) stage 4: the capture's tracked meshes, AO baked at 256^2, the
     # held-out camera rendered with the gray start and with the checkpoint
-    faces = avatar2.tensor("faces", dev)
     verts = [np.load(tracked / f"params_{t}.npz")["vertices"]
              for t in range(n_frames)]
-    chart = load_uv_chart(uv, resolution=256)
-    vt = [torch.as_tensor(v, device=dev) for v in verts]
-    bake_ao(vt[0], faces, chart.face_idx, chart.bary, chart.texel_ij)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    bake_ms = [timed_ms(lambda v=v: bake_ao(
-        v, faces, chart.face_idx, chart.bary, chart.texel_ij), reps=1)
-        for v in vt]
-    bake_peak = torch.cuda.max_memory_allocated() - base
-    aos = [bake_ao(v, faces, chart.face_idx, chart.bary, chart.texel_ij)
-           for v in vt]
-
-    @torch.no_grad()
-    def frame(v, ao):
-        img, _ = tapp.render_avatar_frame(avatar2, loaded, v, ao,
-                                          batch["cam"], test_cam, 3, bg,
-                                          False)
-        return img
-
-    render_ms = [timed_ms(lambda v=v, ao=ao: frame(v, ao))
-                 for v, ao in zip(vt, aos)]
     trees = {}
     for name, p in (("gray", gray), ("final", loaded)):
         out = work / f"eval_{name}"
@@ -2666,33 +1940,24 @@ def stage24_path(dev, smi, work) -> tuple:
         for i, v in enumerate(verts):
             write_obj(str(out / "uvmesh" / f"{i:03d}.obj"), v,
                       avatar2.faces)
-        t0 = time.perf_counter()
         teval.render_eval_sequence(avatar2, p, scene, str(out / "uvmesh"),
                                    str(out), uv, active_sh_degree=3,
                                    skip_video=name == "gray")
-        trees[name] = (out, time.perf_counter() - t0)
-    names = sorted(q.name for q in trees["final"][0].iterdir())
+        trees[name] = out
+    names = sorted(q.name for q in trees["final"].iterdir())
     if names != sorted(["aomap", "uvmesh", f"Cam{test_cam:03d}"]):
         raise AssertionError(f"stage 4: the tree holds {names}")
     chart_c = load_uv_chart(uv, resolution=AO_CUT)
-    t0 = time.perf_counter()
     ao_cpu = bake_ao(torch.as_tensor(verts[0]), avatar2.faces,
                      chart_c.face_idx, chart_c.bary, chart_c.texel_ij,
                      resolution=AO_CUT)
-    cpu_s = time.perf_counter() - t0
-    ao_card = bake_ao(vt[0], faces, chart_c.face_idx, chart_c.bary,
-                      chart_c.texel_ij, resolution=AO_CUT)
+    ao_card = bake_ao(torch.as_tensor(verts[0], device=dev),
+                      avatar2.tensor("faces", dev), chart_c.face_idx,
+                      chart_c.bary, chart_c.texel_ij, resolution=AO_CUT)
     ao_err = float((ao_card.cpu() - ao_cpu).abs().max())
-    print(f"stage 4 ({n_frames} frames, AO 256^2 over "
-          f"{len(chart.face_idx)} texel entries, camera {test_cam}): bake "
-          f"ms per frame {[round(v, 3) for v in bake_ms]}, peak "
-          f"{bake_peak / 2 ** 30:.3f} GiB above the "
-          f"{base / 2 ** 30:.3f} GiB held; render ms per frame (tile path) "
-          f"{[round(v, 3) for v in render_ms]}; render_eval_sequence "
-          f"{trees['gray'][1]:.2f} s (gray start), {trees['final'][1]:.2f} "
-          f"s (checkpoint, with the video step); the bake at {AO_CUT}^2 on "
-          f"the card against the CPU ({cpu_s:.2f} s there): max |diff| "
-          f"{ao_err:.3e} (tol {AO_TOL:.0e})")
+    print(f"stage 4 ({n_frames} frames, camera {test_cam}): the trees "
+          f"{names}; the bake at {AO_CUT}^2 on the card against the CPU: "
+          f"max |diff| {ao_err:.3e} (tol {AO_TOL:.0e})")
     if not ao_err <= AO_TOL:
         raise AssertionError("stage 4: the bake on the card disagrees with "
                              "the CPU")
@@ -2724,30 +1989,26 @@ def stage24_path(dev, smi, work) -> tuple:
     weights = work / "lpips_random.npz"
     random_lpips_npz(weights)
     scores = {}
-    for name, (out, _) in trees.items():
-        t0 = time.perf_counter()
+    for name, out in trees.items():
         eval_metrics.main([
             "--output_path", str(out), "--mesh_path", uv, "--data_path",
             str(cap / "dataset" / "ActorsHQ" / "Actor01" / "Sequence1" /
                 "4x"), "--start_idx", "0", "--num_timesteps", str(n_frames),
             "--cameras", f"Cam{test_cam:03d}", "--lpips_weights",
             str(weights), "--device", dev.type])
-        host_s = time.perf_counter() - t0
         m = {k: np.asarray(v) for f in ("geo_metric.npz", "app_metric.npz")
              for k, v in np.load(out / f).items()}
         scores[name] = m
         print(f"metrics CLI ({name}): "
               + ", ".join(f"{k} {float(v.mean()):.6f}"
-                          for k, v in m.items())
-              + f"; {host_s:.2f} s on the host")
+                          for k, v in m.items()))
         if sorted(m) != ["CD", "F-Score", "LPIPS", "PSNR", "SSIM"] or \
                 not all(np.isfinite(v).all() for v in m.values()):
             raise AssertionError(f"metrics CLI ({name}): {m}")
     if not scores["final"]["PSNR"].mean() > scores["gray"]["PSNR"].mean():
         raise AssertionError("metrics CLI: the checkpoint's PSNR is not "
                              "above the gray start's")
-    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s on {smi}")
-    return ms_step, launches
+    return launches
 
 
 def chair_depth(points, lo, hi):
@@ -2826,57 +2087,23 @@ def depth_gap(m2d, depth, conic, opacity, pixels):
     return torch.tensor(gaps, dtype=torch.float64), torch.tensor(counts)
 
 
-def demo_path(dev, smi, kchecks, per_sub) -> tuple:
+def demo_path(dev, kchecks, per_sub) -> dict:
     """Phase 12, the zero-shot demo, in a git-ignored directory removed
     afterwards.  ``kchecks`` holds phase 4's K2, K4 and K8 checks and the
-    release windows' kernel check.
-    Returns (steady ms per substep, the launches in the device trace of
-    its PROFILE_SUBSTEPS profiled substeps)."""
+    release windows' kernel check.  Returns the launches in the device
+    trace of its PROFILE_SUBSTEPS profiled substeps."""
     import shutil
     work = REPO / "output" / "chip_smoke_demo"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        return _demo(dev, smi, kchecks, per_sub, work)
+        return _demo(dev, kchecks, per_sub, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def demo_cut_scene(device, release: bool, friction: float = 0.5):
-    """The cut demo scene: ``build_demo_sim`` at DEMO_CUT's grid, skirt
-    and sand (the block lowered into the grid so that the release windows
-    hold it), the chair (the skirt starts inside its box) and the capsule body
-    widened to DEMO_CUT's radius, against the skirt's top, and moving at
-    DEMO_CUT's velocity; the collider's friction ``friction``; the
-    windows live over the run, or left out.  Returns (solver, state,
-    model, frame inputs)."""
-    import numpy as np
-    import torch
-    from mpmavatar_tpu_torch.data import make_demo_assets as mda
-    from mpmavatar_tpu_torch.sim import SimTransform
-    from mpmavatar_tpu_torch.train import demo as tdemo
-    cloth_v, cloth_f = mda.skirt_cloth(*DEMO_CUT["skirt"])
-    body_v, body_f = mda.capsule_body(radius=DEMO_CUT["body_r"])
-    chair_v, chair_f = mda.chair_box()
-    col_v = np.concatenate([body_v, chair_v])
-    col_f = np.concatenate([body_f, chair_f + len(body_v)])
-    sand, vol = tdemo.get_sand(center=DEMO_CUT["sand_center"],
-                               res=DEMO_CUT["sand_res"])
-    tf = SimTransform.from_verts(cloth_v)
-    _, state, model, solver = tdemo.build_demo_sim(
-        cloth_v, cloth_f, sand, vol, col_v, col_f, tf,
-        grid_size=DEMO_CUT["grid"], mesh_friction=friction, device=device)
-    if release:
-        z = tf.wld2sim(sand)[:, 2]
-        tdemo.sand_release_schedule(solver, state, None, (0.0, 0.0, 1.0),
-                                    float(z.max()), float(z.min()),
-                                    *DEMO_CUT["release"])
-    mesh_x = tf.wld2sim(col_v, device)
-    mesh_v = torch.zeros_like(mesh_x)
-    mesh_v[:len(body_v)] = tf.vel2sim(DEMO_CUT["body_v"], device)
-    return solver, state, model, {"mesh_x": mesh_x, "mesh_v": mesh_v}
 
 
-def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
+def _demo(dev, kchecks, per_sub, work) -> dict:
     import numpy as np
     import torch
     from mpmavatar_tpu_torch.core import stepping
@@ -2890,12 +2117,8 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
     from mpmavatar_tpu_torch.train import run_demo
     from mpmavatar_tpu_torch.utils.io import read_obj
 
-    t_phase = time.perf_counter()
     assets = work / "assets"
-    t0 = time.perf_counter()
     mda.main(["--out", str(assets), "--n_poses", str(DEMO_POSES)])
-    print(f"demo: make_demo_assets ({DEMO_POSES} poses) in "
-          f"{time.perf_counter() - t0:.2f} s")
     a = lambda name: str(assets / name)
     out = work / "out"
     flags = ["--cloth_obj", a("cloth.obj"), "--body_obj", a("body.obj"),
@@ -2909,15 +2132,11 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
              a("tracked"), "--uv_path", a("uv.obj"), "--skip_video",
              "--out_dir", str(out), "--device", str(dev)]
 
-    # (a) the CLI, its launches counted over the whole run
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
+    # (a) the CLI, its launches counted over the whole run (its log, which
+    # carries its wall clock, not echoed)
     _build.reset_launch_counts()
-    res = run_demo.main(flags, log=lambda line: print(f"  run_demo: {line}"))
-    torch.cuda.synchronize()
+    res = run_demo.main(flags, log=lambda line: None)
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     cfg, solver, state = res["cfg"], res["solver"], res["state"]
     model, dt, t_end = res["model"], res["dt"], res["time"]
     frames = len(res["frame_s"])
@@ -2926,21 +2145,13 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
     if frames != DEMO_POSES + DEMO_EXTRA or launches != want:
         raise AssertionError(f"demo: {frames} frames, launches {launches}, "
                              f"expected {want}")
-    ms_sub = 1e3 * res["frame_s"][-1] / DEMO_SUBSTEPS
     e, n_t = cfg.n_elements, cfg.n_traditional
     print(f"demo: P={cfg.n_particles} ({e} elements, {n_t} sand, "
           f"{cfg.n_vertices} vertices), {DEMO_GRID}^3, {frames} x "
           f"{DEMO_SUBSTEPS} substeps (dt {dt:.2e}), "
           f"{len(solver.colliders.mesh_colliders[0].faces)} collider faces "
           f"(the posed rig and the chair), no pinned vertex; launches "
-          f"{launches}; frame wall times "
-          f"{[round(s, 4) for s in res['frame_s']]} s, steady "
-          f"{ms_sub:.4f} ms/substep; stages: pose playback "
-          f"{res['playback']:.2f} s, build and release masks "
-          f"{res['build']:.2f} s, simulation with OBJs {res['sim']:.2f} s, "
-          f"bakes and orbit renders {res['render']:.2f} s; peak "
-          f"{(peak - held) / 2 ** 30:.3f} GiB above the "
-          f"{held / 2 ** 30:.3f} GiB held before")
+          f"{launches}")
 
     # (b) the release under the JAX package's semantics
     sand = slice(e, e + n_t)
@@ -2980,18 +2191,6 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
     slowed = int((vy > fall * (1 - FALL_REL_TOL)).sum())
     y_last = state.x[sand, 1]
     y_before = sand_y(frames - 2) + float(tf.shift[1])
-    # the modifiers' share: PROFILE_SUBSTEPS substeps with and without
-    # them, from the same state, in turns
-    with_mods = solver.colliders
-    without = dataclasses.replace(with_mods, velocity_modifiers=())
-    run_n = lambda: solver.frame(state, model, dt, PROFILE_SUBSTEPS, t_end,
-                                 **res["inputs"])
-    walls = {True: [], False: []}
-    for mods_on in (True, False, False, True):
-        solver.colliders = with_mods if mods_on else without
-        walls[mods_on].append(timed_ms(run_n, reps=1) / PROFILE_SUBSTEPS)
-    solver.colliders = with_mods
-    mod_ms = min(walls[True]) - min(walls[False])
     default_frames = 30 + 130
     default_end = 100 / run_demo.FPS + (default_frames - 100) / run_demo.FPS
     default_dead = sum(default_end / len(mods) * (i + 1) <= 100 / run_demo.FPS
@@ -3010,12 +2209,7 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
           f"frame the sand's sim y from [{float(y_before.min()):.4f}, "
           f"{float(y_before.max()):.4f}] to [{float(y_last.min()):.4f}, "
           f"{float(y_last.max()):.4f}], {slowed} of {n_t} grains slower "
-          f"than g t by more than {FALL_REL_TOL:.0%} (the body's top); "
-          f"{PROFILE_SUBSTEPS} substeps with the modifiers "
-          f"{min(walls[True]):.4f} ms/substep, without "
-          f"{min(walls[False]):.4f} (host clock, the best of two): the "
-          f"modifiers {mod_ms:.4f} ms, {100 * mod_ms / min(walls[True]):.1f}% "
-          f"of the substep")
+          f"than g t by more than {FALL_REL_TOL:.0%} (the body's top)")
     if not (live and bool(sel.any()) and still <= RELEASE_STILL
             and untouched):
         raise AssertionError("demo: the release windows do not hold their "
@@ -3122,8 +2316,6 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
     orbit = res["orbit"]
     if len(orbit) != frames or any(r["big_overflow"] for r in orbit):
         raise AssertionError(f"demo orbit: {orbit}")
-    bake_ms = [1e3 * r["bake_s"] for r in orbit]
-    frame_ms = [1e3 * r["render_s"] for r in orbit]
     avatar, params = load_mesh_avatar(a("tracked"), a("uv.obj"), device=dev)
     avatar_c, params_c = load_mesh_avatar(a("tracked"), a("uv.obj"),
                                           device="cpu")
@@ -3188,46 +2380,23 @@ def _demo(dev, smi, kchecks, per_sub, work) -> tuple:
         if sand_diff <= 0.01 or overflow or not bool(tied.all()) or \
                 len(bad) > 0.01 * ORBIT_CUT ** 2:
             raise AssertionError(f"demo orbit frame {i} fails its checks")
-    print(f"demo orbit: per frame AO bake "
-          f"{[round(x, 2) for x in bake_ms]} ms, render and PNG data "
-          f"{[round(x, 2) for x in frame_ms]} ms at 1024^2 "
-          f"({len(orbit)} frames, no overflow)")
 
-    # (g) a profile of PROFILE_SUBSTEPS more substeps, checked against
-    # the launches per substep in its device trace: replays of the graph
-    # that the profiler's warm-up frame captures (setting the collider
-    # set above dropped the graph)
-    n = PROFILE_SUBSTEPS
-    busy_s, prof_wall, rows = profile_device(
-        lambda: solver.frame(state, model, dt, n, t_end, **res["inputs"]),
+    # (g) PROFILE_SUBSTEPS more substeps under the profiler, checked
+    # against the launches per substep in its device trace: replays of
+    # the graph the run captured (a one-substep frame as the profiler's
+    # discarded warm-up)
+    rows = profile_device(
+        lambda: solver.frame(state, model, dt, PROFILE_SUBSTEPS, t_end,
+                             **res["inputs"]),
         warm=lambda: solver.frame(state, model, dt, 1, t_end,
                                   **res["inputs"]))
-    (OUT / "chip_smoke_profile_demo.txt").write_text("\n".join(
-        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
-    traced = check_traced("demo", rows, per_sub, n)
-    if rows:
-        idle = 100 * max(0.0, 1 - busy_s / n / (ms_sub * 1e-3))
-        kernels = sum(r[2] for r in rows) / n
-        print(f"demo profile of {n} substeps: device busy "
-              f"{1e3 * busy_s / n:.4f} ms/substep in {kernels:.1f} "
-              f"kernels/substep ({sum(per_sub.values())} of them the "
-              f"port's), "
-              f"{1e3 * prof_wall / n:.4f} ms/substep profiled wall; the "
-              f"device idle {idle:.1f}% of the steady substep")
-        for key, us, calls in rows[:10]:
-            print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
-                  f"{key[:90]}")
-    else:
-        print("demo profile: the profiler recorded no device time; busy "
-              "share not measured")
-    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s on {smi}")
-    return ms_sub, traced
+    return check_traced("demo", rows, per_sub, PROFILE_SUBSTEPS)
 
 
-def tracking_path(dev, smi, cap, work, check) -> tuple:
+def tracking_path(dev, cap, work, check) -> dict:
     """Phase 13, stage-1 tracking on phase 11's capture under ``cap``,
     written under ``work``; ``check`` is phase 4's kernel check.  Returns
-    (steady ms per iteration, the run's launches)."""
+    the run's launches."""
     import contextlib
     import shutil
     from unittest import mock
@@ -3240,7 +2409,6 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
     from mpmavatar_tpu_torch.train import run_tracking
     from mpmavatar_tpu_torch.train import tracking as tt
 
-    t_phase = time.perf_counter()
     frames_dir = cap / "dataset" / "ActorsHQ" / "Actor01" / "Sequence1" / "4x"
     out = work / "tracking"
     flags = ["--dataset_dir", str(cap / "dataset"), "--template_obj",
@@ -3249,40 +2417,31 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
              "--iters_first", str(TRACK_ITERS[0]), "--iters_rest",
              str(TRACK_ITERS[1]), "--work_cap", str(TRACK_WORK_CAP),
              "--device", str(dev)]
-    starts, trackers, stats = [], [], []
+    trackers, stats = [], []
     real_step = tt.MeshTracker.step
 
-    def timed_step(self, *args, **kw):
+    def counted_step(self, *args, **kw):
         if not trackers:
             trackers.append(self)
-        starts.append(time.perf_counter())
         loss = real_step(self, *args, **kw)
         stats.append(torch.stack([self.stats["work_overflow"],
                                   self.stats["big_overflow"],
                                   self.stats["n_items"]]))
         return loss
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
     _build.reset_launch_counts()
-    with mock.patch.object(tt.MeshTracker, "step", timed_step):
+    with mock.patch.object(tt.MeshTracker, "step", counted_step):
         res = run_tracking.main(flags, log=lambda line: print(
             f"  run_tracking: {line}"))
-    torch.cuda.synchronize()
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     n_it = sum(TRACK_ITERS)
     want = {kcomp.KERNEL: 2 * n_it, kcomp.KERNEL_BWD: 2 * n_it}
     counts = torch.stack(stats).cpu()
-    if launches != want or len(starts) != n_it:
-        raise AssertionError(f"tracking: {len(starts)} iterations, launches "
+    if launches != want or len(stats) != n_it:
+        raise AssertionError(f"tracking: {len(stats)} iterations, launches "
                              f"{launches}, expected {want}")
     if int(counts[:, :2].sum()):
         raise AssertionError("tracking: the rasterizer overflowed")
-    it_ms = [1e3 * (b - a) for a, b in zip(starts[:TRACK_ITERS[0] - 1],
-                                           starts[1:TRACK_ITERS[0]])]
-    steady = statistics.median(it_ms[TRACK_WARM:])
     losses = res[0]
     tracker = trackers[0]
     n_faces = int(tracker.variables["faces"].shape[0])
@@ -3290,14 +2449,8 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
           f"{len(tracker.params['cam_m'])} cameras, "
           f"{TRACK_ITERS[0]} + {TRACK_ITERS[1]} iterations, work_cap "
           f"{TRACK_WORK_CAP} (up to {int(counts[:, 2].max())} phase-2 items, "
-          f"no overflow); launches {launches}; per iteration "
-          f"{steady:.4f} ms median after {TRACK_WARM} (range "
-          f"{min(it_ms[TRACK_WARM:]):.4f}-{max(it_ms[TRACK_WARM:]):.4f}); "
-          f"frame wall {[round(s, 2) for s in res['seconds'].values()]} s "
-          f"(the images' decode included); frame 0's loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f}; peak "
-          f"{(peak - held) / 2 ** 30:.3f} GiB above the "
-          f"{held / 2 ** 30:.3f} GiB held")
+          f"no overflow); launches {launches}; frame 0's loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
     if n_faces != TRACK_FACES or not losses[-1] < losses[0]:
         raise AssertionError("tracking: the loss did not fall over frame 0")
 
@@ -3361,33 +2514,9 @@ def tracking_path(dev, smi, cap, work, check) -> tuple:
     # K6 and K7 on one more iteration's own worklists and cotangents
     composite_pair(check, "tracking",
                    lambda: tracker.step(batch, None, None, False), launches)
-
-    # a profile of one more iteration
-    busy_s, prof_wall, rows = profile_device(
-        lambda: tracker.step(batch, None, None, False))
-    (OUT / "chip_smoke_profile_tracking.txt").write_text("\n".join(
-        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
-    if rows:
-        busy = 1e3 * busy_s
-        print(f"tracking profile of one iteration: device busy "
-              f"{busy:.4f} ms in {sum(r[2] for r in rows)} kernels, "
-              f"{1e3 * prof_wall:.4f} ms profiled wall; against the steady "
-              f"iteration busy {100 * min(1.0, busy / steady):.1f}%, idle "
-              f"{100 * max(0.0, 1 - busy / steady):.1f}%")
-        for key, us, calls in rows[:8]:
-            print(f"  {us:10.2f} us {calls:4d}x  {key[:90]}")
-    else:
-        print("tracking profile: no device time recorded; busy share not "
-              "measured")
-    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s on {smi}")
-    return steady, launches
+    return launches
 
 
-def free_port() -> int:
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
 
 
 def uniform_model(model, mesh_friction):
@@ -3431,7 +2560,7 @@ def sharded_blocks(st):
 def multi_device_path(dev, check, per_sub, k5) -> dict:
     """Phase 14: the sharded frame, K5 on a slab, the sharded material
     step and the data-parallel stage-2 step over a one-rank NCCL group.
-    Returns {path: (ms, launches)}."""
+    Returns {path: launches}."""
     import torch
     import torch.distributed as dist
     if not dist.is_nccl_available():
@@ -3453,9 +2582,9 @@ def multi_device_path(dev, check, per_sub, k5) -> dict:
         dist.destroy_process_group()
 
 
-def sharded_frame_path(dev, group, check, per_sub, k5) -> tuple:
+def sharded_frame_path(dev, group, check, per_sub, k5) -> dict:
     """The sharded frame on path B at full width, K5 on a slab; returns
-    (steady ms/substep, launches)."""
+    its launches."""
     import torch
     from mpmavatar_tpu_torch.core.types import build_body_sphere
     from mpmavatar_tpu_torch.ops import _build
@@ -3469,14 +2598,9 @@ def sharded_frame_path(dev, group, check, per_sub, k5) -> tuple:
     print(f"sharded frame (path B: {GRID_B}^3, P={cfg.n_particles}, "
           f"{ins[0].shape[0]} collider triangles, {cfg.num_joint_v} + "
           f"{cfg.num_joint_f} joint points), {FRAMES} x {SUBSTEPS} substeps")
-    torch.cuda.synchronize()
     _build.reset_launch_counts()
-    frame_s = []
     for f in range(FRAMES):
-        t0 = time.perf_counter()
         st = frame(st, um, *ins)
-        torch.cuda.synchronize()
-        frame_s.append(time.perf_counter() - t0)
         if not all(bool(torch.isfinite(getattr(st, k)).all())
                    for k in ("xe", "xv", "xt", "ve", "vv", "vt", "Ft", "d")):
             raise AssertionError(f"sharded frame {f}: non-finite state")
@@ -3485,49 +2609,8 @@ def sharded_frame_path(dev, group, check, per_sub, k5) -> tuple:
     if launches != want:
         raise AssertionError(f"sharded frame: launches {launches}, expected "
                              f"{want}")
-    ms = 1e3 * frame_s[-1] / SUBSTEPS
-    # MPMSolver.frame on the same scene, timed the same way
-    s, t, single_s = state0, 0.0, []
-    for f in range(FRAMES):
-        t0 = time.perf_counter()
-        s, t = solver.frame(s, model, DT, SUBSTEPS, t, **scene)
-        torch.cuda.synchronize()
-        single_s.append(time.perf_counter() - t0)
-    ms_single = 1e3 * single_s[-1] / SUBSTEPS
-    x_sh, v_sh = sharded_blocks(st)
     print(f"sharded frame: launches {launches} in {FRAMES * SUBSTEPS} "
-          f"substeps; frame wall times {[round(x, 4) for x in frame_s]} s, "
-          f"steady {ms:.4f} ms/substep; MPMSolver.frame on the same scene "
-          f"{[round(x, 4) for x in single_s]} s, steady {ms_single:.4f} "
-          f"ms/substep: the sharded frame's overhead "
-          f"{100 * (ms / ms_single - 1):.1f}%; after {FRAMES * SUBSTEPS} "
-          f"substeps the two differ by x "
-          f"{float((x_sh - s.x).abs().max()):.3e}, v "
-          f"{float((v_sh - s.v).abs().max()):.3e}")
-    frame_p = sharded_scene(solver, state0, model, scene, group,
-                            PROFILE_SUBSTEPS)[0]
-    busy_s, prof_wall, rows = profile_device(lambda: frame_p(st, um, *ins))
-    n = PROFILE_SUBSTEPS
-    (OUT / "chip_smoke_profile_sharded_frame.txt").write_text("\n".join(
-        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
-    if rows:
-        # at one rank NCCL copies; the collectives' clones are copies too
-        coll = sum(us for key, us, _ in rows if "nccl" in key.lower()
-                   or "memcpy dtod" in key.lower())
-        print(f"sharded frame profile of {n} substeps: device busy "
-              f"{1e3 * busy_s / n:.4f} ms/substep in "
-              f"{sum(r[2] for r in rows) / n:.1f} kernels/substep, idle "
-              f"{100 * max(0.0, 1 - busy_s / n / (ms * 1e-3)):.1f}% against "
-              f"the steady frame; the collectives (NCCL kernels and "
-              f"device-to-device copies) "
-              f"{coll / n / 1e3:.4f} ms/substep, "
-              f"{100 * coll * 1e-6 / busy_s:.1f}% of the device time")
-        for key, us, calls in rows[:12]:
-            print(f"  {us / n:10.2f} us/substep {calls // n:4d}/substep  "
-                  f"{key[:90]}")
-    else:
-        print("sharded frame profile: the profiler recorded no device time; "
-              "device busy not measured")
+          f"substeps")
 
     # against MPMSolver.frame over COMPARE_SUBSTEPS substeps, in contact
     faces_out = build_body_sphere(center=MD_BODY_CENTER,
@@ -3600,13 +2683,12 @@ def sharded_frame_path(dev, group, check, per_sub, k5) -> tuple:
     if e_rel > KERNEL_REL_TOL["grid_pipeline"]:
         raise AssertionError("grid_pipeline on a slab (all branches) "
                              "disagrees")
-    return ms, launches
+    return launches
 
 
-def sharded_material_path(dev, group) -> tuple:
+def sharded_material_path(dev, group) -> dict:
     """The sharded material step at phase 9's shape against the
-    single-device autograd of the same loss; returns (ms/step,
-    launches)."""
+    single-device autograd of the same loss; returns its launches."""
     from unittest import mock
     import torch
     from mpmavatar_tpu_torch.core.colliders import ColliderSet, MeshCollider
@@ -3631,16 +2713,9 @@ def sharded_material_path(dev, group) -> tuple:
                                       num_joint_v=cfg.num_joint_v)
     sh = make_sharded_cloth_state(cfg, state, 1)
     args = (sh, um, mesh_x[col.faces], mesh_v[col.faces], jv, target)
-    step(*args)                                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     loss, grads, _ = step(*args)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0)
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     # forward + each substep's recompute: the kernels twice per substep
     per = {"cloth_stress": 1, "p2g": 1, "grid_pipeline": 1, "g2p": 1,
            "splat": 2}
@@ -3662,15 +2737,12 @@ def sharded_material_path(dev, group) -> tuple:
     solver.colliders = ColliderSet(mesh_colliders=(MeshCollider(
         faces=col.faces, friction=leaves["mesh_friction"]),),
         use_particle_mover=True)
-    t0 = time.perf_counter()
     out, _ = solver.frame(state, model_l, DT, n_sub, 0.0, mesh_x=mesh_x,
                           mesh_v=mesh_v, joint_verts_v=jv, remat=True)
     err = torch.sum((out.x[cfg.n_elements:] - target) ** 2)
     ref_loss = err / (3.0 * cfg.n_vertices)
     ref = torch.autograd.grad(ref_loss, list(leaves.values()),
                               allow_unused=True)
-    torch.cuda.synchronize()
-    ref_ms = 1e3 * (time.perf_counter() - t0)
     ref = {k: torch.zeros_like(leaves[k]) if g is None else g
            for k, g in zip(leaves, ref)}
     real = sharded._stress.cloth_stress
@@ -3685,11 +2757,9 @@ def sharded_material_path(dev, group) -> tuple:
 
     sound, bad = leaf_errs(grads), leaf_errs(wrong)
     print(f"sharded material step (phase 9's shape, P={P}, {MAT_GRID}^3, "
-          f"{n_sub} substeps, each checkpointed): {ms:.4f} ms/step (after "
-          f"a warm-up step), peak allocated {peak / 2 ** 30:.3f} GiB; "
-          f"launches {launches}; loss {float(loss):.9e} against the "
-          f"single-device {float(ref_loss.detach()):.9e} ({ref_ms:.1f} ms with its "
-          f"rollout); gradients per leaf "
+          f"{n_sub} substeps, each checkpointed): launches {launches}; "
+          f"loss {float(loss):.9e} against the single-device "
+          f"{float(ref_loss.detach()):.9e}; gradients per leaf "
           + ", ".join(f"{k} {float(ref[k].abs().max()):.3e}" for k in ref)
           + "; rel err " + ", ".join(f"{k} {e:.3e}" for k, e in sound.items())
           + f" (tol {MD_GRAD_TOL:.0e}); wrong path (K1's outputs detached): "
@@ -3701,13 +2771,12 @@ def sharded_material_path(dev, group) -> tuple:
         raise AssertionError("the sharded material gradient disagrees with "
                              "the single-device gradient, or the limit does "
                              "not separate the wrong path")
-    return ms, launches
+    return launches
 
 
-def dp_step_path(dev, group) -> tuple:
+def dp_step_path(dev, group) -> dict:
     """The data-parallel stage-2 step at world size 1 on phase 7's avatar
-    with DP_SAMPLES local samples; returns (ms/step, launches per
-    step)."""
+    with DP_SAMPLES local samples; returns its launches per step."""
     import numpy as np
     import torch
     from mpmavatar_tpu_torch.data import OptimizationParams
@@ -3777,43 +2846,34 @@ def dp_step_path(dev, group) -> tuple:
         return errs[k], k
 
     sound, bad = worst(seen), worst(per_sample[0])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
     for _ in range(DP_STEPS):
-        t0 = time.perf_counter()
         ds, loss, metrics = step(params, ds, *batch)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-    peak = torch.cuda.max_memory_allocated()
-    med = statistics.median(times)
     print(f"DP stage-2 step (world size 1, {DP_SAMPLES} local samples of "
           f"phase 7's avatar, {W} x {H}): launches {launches} per step; "
           f"the gradients of {len(mean)} leaves against the mean of the "
           f"single-device make_loss_and_grads: max rel err {sound[0]:.3e} "
           f"({sound[1]}; tol {STEP_GRAD_TOL:.0e}); wrong path (the first "
-          f"sample's alone): {bad[0]:.3e} ({bad[1]}); {DP_STEPS} steps "
-          f"{med:.4f} ms/step median ({min(times):.4f}-{max(times):.4f}), "
-          f"{med / DP_SAMPLES:.4f} ms per sample; loss {float(loss):.6f}, "
-          f"overflow {int(metrics['work_overflow'])} / "
+          f"sample's alone): {bad[0]:.3e} ({bad[1]}); after {DP_STEPS} "
+          f"more steps loss {float(loss):.6f}, overflow "
+          f"{int(metrics['work_overflow'])} / "
           f"{int(metrics['big_overflow'])}; densify denom max "
-          f"{float(ds.denom.max()):.0f}; peak allocated "
-          f"{peak / 2 ** 30:.3f} GiB")
+          f"{float(ds.denom.max()):.0f}")
     if not sound[0] <= STEP_GRAD_TOL < bad[0]:
         raise AssertionError("the DP step's gradient disagrees with the "
                              "single-device mean, or the limit does not "
                              "separate the wrong path")
     if int(metrics["work_overflow"]) or not np.isfinite(float(loss)):
         raise AssertionError("DP step: overflow or a non-finite loss")
-    return med, launches
+    return launches
 
 
-def recovery_path(dev, per_sub) -> tuple:
+def recovery_path(dev, per_sub) -> dict:
     """Phase 15: train/stage3_production.py --recover at full width;
-    returns (s per step, launches)."""
+    returns its launches."""
+    import contextlib
+    import io
     import json as _json
     import numpy as np
-    import torch
     from mpmavatar_tpu_torch.ops import _build
     from mpmavatar_tpu_torch.train import stage3_production as S
     trace_path = OUT / "chip_smoke_recover.jsonl"
@@ -3828,19 +2888,15 @@ def recovery_path(dev, per_sub) -> tuple:
         traj["t"] = synthesize(a)[1]
         return None, traj["t"]
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     S.synthesize = recorded
-    t0 = time.perf_counter()
     try:
-        summary = S.run_recover(args)
+        # its printed records carry each step's wall clock: not echoed
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = S.run_recover(args)
     finally:
         S.synthesize = synthesize
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = _build.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
     trace = [_json.loads(x) for x in trace_path.read_text().splitlines()]
     steps = trace[:-1]
     t = traj["t"]
@@ -3856,13 +2912,11 @@ def recovery_path(dev, per_sub) -> tuple:
           f"{REC_GRID} --substep {REC_SUBSTEP} --steps {REC_STEPS}): "
           f"{summary['particles']} particles, {len(t[0])} vertices; the "
           f"trajectory at {S.TRUTH} moves {move:.4f}; steps "
-          + "; ".join(f"{r['step']}: loss {r['loss']:.9e}, {r['sec']} s, D "
+          + "; ".join(f"{r['step']}: loss {r['loss']:.9e}, D "
                       f"{r['D']:.6f}, E {r['E']:.6f}, H {r['H']:.6f}"
                       for r in steps)
           + f"; toward TRUTH after the last step: {toward}; err "
-          f"{summary['err']}; whole run {wall:.1f} s (steps "
-          f"{summary['wall_sec']} s); peak allocated {peak / 2 ** 30:.3f} "
-          f"GiB; launches {launches}")
+          f"{summary['err']}; launches {launches}")
     if launches != want:
         raise AssertionError(f"recovery: launches {launches}, expected "
                              f"{want}")
@@ -3874,7 +2928,7 @@ def recovery_path(dev, per_sub) -> tuple:
             and steps[1]["loss"] < steps[0]["loss"]):
         raise AssertionError("recovery: not the full width, or the loss did "
                              "not fall")
-    return statistics.median(r["sec"] for r in steps), launches
+    return launches
 
 
 def joint_grads(tracker, batch, detach_body: bool = False):
@@ -3901,21 +2955,6 @@ def joint_grads(tracker, batch, detach_body: bool = False):
             for g, x in zip(grads, leaves)]
 
 
-def busy_share(label, busy_ms, timed_ms) -> None:
-    """Print a profiled iteration's device busy time against a timed
-    iteration's wall, unclamped; flag a busy time above the wall (the two
-    are different iterations, so a share over 1 is their spread or a
-    mismatched window, never an idle share)."""
-    share = busy_ms / timed_ms
-    print(f"  {label}: busy {busy_ms:.4f} ms against the timed iteration's "
-          f"{timed_ms:.4f} ms: busy share {share:.4f}, idle share "
-          f"{1 - share:.4f}")
-    if share > 1:
-        print(f"  FLAG {label}: the profiled iteration's device busy time "
-              f"exceeds the timed iteration's wall by {busy_ms - timed_ms:.4f}"
-              f" ms; no idle share is read from this pair")
-
-
 def driver_launches(per_sub_a, per_sub_b) -> dict:
     """The launches of ``bench --headline_only``: the garment at 128^3 and
     200^3 (path A's kernels per substep) and at 250^3 with sand (path
@@ -3934,25 +2973,21 @@ def driver_launches(per_sub_a, per_sub_b) -> dict:
     return want
 
 
-def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
+def drivers_path(dev, check, per_sub_a, per_sub_b) -> tuple:
     """Phase 16: the tracking bench (tile path, then the worklist
-    compositor with its launches, K6/K7 checks, profile and gradient
-    check) and the one-line driver with its launches; ``check`` is phase
-    4's kernel check, ``per_sub_a``/``per_sub_b`` paths A's and B's
-    launches per substep.  Returns (tile-path ms per iteration, worklist
-    ms per iteration, the worklist run's launches, the driver's
+    compositor with its launches, K6/K7 checks and gradient check) and
+    the one-line driver with its launches; ``check`` is phase 4's kernel
+    check, ``per_sub_a``/``per_sub_b`` paths A's and B's launches per
+    substep.  Returns (the worklist run's launches, the driver's
     launches)."""
     import contextlib
     import io
     import math
-    import torch
     from mpmavatar_tpu_torch import bench
     from mpmavatar_tpu_torch.ops import _build
     from mpmavatar_tpu_torch.ops import composite as kcomp
     from mpmavatar_tpu_torch.train import bench_tracking as BT
-    from mpmavatar_tpu_torch.utils.losses import collision_loss
 
-    t_phase = time.perf_counter()
     # the JAX bench's tile path: plain tensor code, no kernel
     _build.reset_launch_counts()
     tile = BT.run(iters=BENCH_TRACK_ITERS, device=dev)
@@ -3960,15 +2995,9 @@ def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
     print(f"tracking bench, tile path (train/bench_tracking.py): "
           f"{tile['n_faces']} faces at 1500x1000, the 10,475-vertex rig and "
           f"VPoser in the graph, {BENCH_TRACK_ITERS} iterations after "
-          f"{BT.WARMUP}: {tile['ms_per_iter']:.4f} ms per iteration, "
-          f"{tile['value']:.4f} steps/s, projected "
-          f"{tile['projected_min_per_frame_3k_iters']:.3f} min per "
-          f"3,000-iteration frame and "
-          f"{tile['projected_t0_hours_10k_iters']:.4f} h for the first "
-          f"frame's 10,000; loss {tile['loss']:.6f}; peak allocated "
-          f"{tile['peak_allocated_bytes'] / 2 ** 30:.3f} GiB; overflow "
-          f"work {tile['work_overflow']}, big {tile['big_overflow']}; "
-          f"launches {tile_launches}")
+          f"{BT.WARMUP}: loss {tile['loss']:.6f}; overflow work "
+          f"{tile['work_overflow']}, big {tile['big_overflow']}; launches "
+          f"{tile_launches}")
     if tile["n_faces"] != BENCH_TRACK_FACES or tile_launches or not \
             math.isfinite(tile["loss"]) or tile["big_overflow"]:
         raise AssertionError("tracking bench, tile path: not the bench's "
@@ -3982,18 +3011,12 @@ def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
     work = BT.timed(tracker, batches, n_faces, BENCH_TRACK_ITERS,
                     after_warmup=_build.reset_launch_counts)
     launches = _build.launch_counts()
-    work_ms = work["ms_per_iter"]
     want = {kcomp.KERNEL: 2 * BENCH_TRACK_ITERS,
             kcomp.KERNEL_BWD: 2 * BENCH_TRACK_ITERS}
     stats = {k: int(v) for k, v in tracker.stats.items()}
     print(f"tracking bench, worklist compositor (--work_cap "
-          f"{BENCH_TRACK_WORK_CAP}): {work_ms:.4f} ms per iteration, "
-          f"{work['value']:.4f} steps/s "
-          f"({work['projected_min_per_frame_3k_iters']:.3f} min per "
-          f"3,000-iteration frame); loss {work['loss']:.6f}; the last "
-          f"step's {stats}; peak allocated "
-          f"{work['peak_allocated_bytes'] / 2 ** 30:.3f} GiB; launches "
-          f"{launches}")
+          f"{BENCH_TRACK_WORK_CAP}): loss {work['loss']:.6f}; the last "
+          f"step's {stats}; launches {launches}")
     if launches != want or stats["work_overflow"] or stats["big_overflow"]:
         raise AssertionError(f"tracking bench, worklist: launches "
                              f"{launches}, expected {want}, or overflow")
@@ -4002,58 +3025,7 @@ def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
     batch = tracker._device_batches(batches)[0]
     composite_pair(check, "tracking bench",
                    lambda: tracker.step(batch, None, None, True), launches)
-
-    # a profile of one more iteration, and the collision penalty alone
-    busy_s, prof_wall, rows = profile_device(
-        lambda: tracker.step(batch, None, None, True))
-    (OUT / "chip_smoke_profile_tracking_bench.txt").write_text("\n".join(
-        f"{us:12.1f} us {calls:6d}x  {key}" for key, us, calls in rows) + "\n")
-    cloth = tracker.params["vertices"].detach()[
-        tracker.variables["cloth_v_idx"]].requires_grad_(True)
-    body_v, body_vn = (t.detach() for t in tracker._smplx_geometry(
-        tracker.smplx_train, tracker.smplx_fixed))
-    body_v.requires_grad_(True)
-    coll_fwd = event_ms(lambda: collision_loss(cloth, body_v, body_vn),
-                        reps=3, inner=5)
-    coll_ms = event_ms(lambda: torch.autograd.grad(
-        collision_loss(cloth, body_v, body_vn), [cloth, body_v]), reps=3,
-        inner=5)
-    if rows:
-        print(f"tracking bench profile of one worklist iteration: device "
-              f"busy {1e3 * busy_s:.4f} ms in {sum(r[2] for r in rows)} "
-              f"kernels, {1e3 * prof_wall:.4f} ms profiled wall")
-        busy_share("worklist iteration", 1e3 * busy_s, work_ms)
-        for key, us, n in rows[:8]:
-            print(f"  {us:10.2f} us {n:4d}x  {key[:90]}")
-    else:
-        print("tracking bench profile: no device time recorded; busy share "
-              "not measured")
-    print(f"tracking bench collision penalty ({cloth.shape[0]} cloth x "
-          f"{body_v.shape[0]} body vertices, the full distance matrix "
-          f"{4 * cloth.shape[0] * body_v.shape[0] / 2 ** 20:.1f} MiB): "
-          f"forward {coll_fwd:.4f} ms, forward + backward {coll_ms:.4f} ms "
-          f"(CUDA events)")
-
-    # a profile of one tile-path iteration (after the worklist's timing:
-    # the profiler slows the host's launches for the rest of the process)
-    tracker, batches, _ = BT.build_tracking_problem(device=dev)
-    batch = tracker._device_batches(batches)[0]
-    tracker.step(batch, None, None, True)
-    busy_s, prof_wall, rows = profile_device(
-        lambda: tracker.step(batch, None, None, True))
-    (OUT / "chip_smoke_profile_tracking_bench_tile.txt").write_text(
-        "\n".join(f"{us:12.1f} us {n:6d}x  {key}" for key, us, n in rows)
-        + "\n")
     del tracker, batches, batch
-    if rows:
-        print(f"tracking bench profile of one tile-path iteration: device "
-              f"busy {1e3 * busy_s:.4f} ms in {sum(r[2] for r in rows)} "
-              f"kernels, {1e3 * prof_wall:.4f} ms profiled wall")
-        busy_share("tile-path iteration", 1e3 * busy_s, tile["ms_per_iter"])
-        for key, us, n in rows[:8]:
-            print(f"  {us:10.2f} us {n:4d}x  {key[:90]}")
-    else:
-        print("tracking bench tile-path profile: no device time recorded")
 
     # one joint iteration's gradient at a cut shape: the card against the
     # CPU plain path, beside the SMPL-X geometry detached
@@ -4093,7 +3065,7 @@ def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
     out = text.getvalue().strip().splitlines()
     line = json.loads(out[-1])
     want = driver_launches(per_sub_a, per_sub_b)
-    print(f"mpmavatar_tpu_torch.bench --headline_only: {out[-1]}; launches "
+    print(f"mpmavatar_tpu_torch.bench --headline_only: launches "
           f"{drv_launches}")
     if drv_launches != want:
         raise AssertionError(f"bench --headline_only: launches "
@@ -4103,207 +3075,12 @@ def drivers_path(dev, smi, check, per_sub_a, per_sub_b) -> tuple:
     if bad or line["metric"] != bench.METRIC:
         raise AssertionError(f"bench --headline_only: keys {bad} missing, "
                              f"not finite or not positive")
-    print(f"phase 16 took {time.perf_counter() - t_phase:.1f} s on {smi}")
-    return tile["ms_per_iter"], work_ms, launches, drv_launches
+    return launches, drv_launches
 
 
-def stage_cloth(nx=5, ny=5, y0=1.0, extent=0.4):
-    """tests/test_substep_golden.py::make_cloth (the JAX suite's cloth),
-    without JAX."""
-    import numpy as np
-    xs = np.linspace(1.0 - extent / 2, 1.0 + extent / 2, nx)
-    zs = np.linspace(1.0 - extent / 2, 1.0 + extent / 2, ny)
-    verts = np.stack(np.meshgrid(xs, zs, indexing="ij"), -1).reshape(-1, 2)
-    verts = np.stack([verts[:, 0], np.full(len(verts), y0), verts[:, 1]], -1)
-    faces = []
-    for i in range(nx - 1):
-        for j in range(ny - 1):
-            a = i * ny + j
-            faces += [[a, a + 1, a + ny], [a + 1, a + ny + 1, a + ny]]
-    return verts.astype(np.float64), np.asarray(faces, np.int32)
 
 
-def lookat_cams(eyes, target=(0.0, 0.0, 0.0), w=80, h=80, f=160.0):
-    """tests/test_convergence.py::_lookat_cams with the port's Camera:
-    OpenCV-convention cameras at ``eyes`` looking at ``target``."""
-    import numpy as np
-    from mpmavatar_tpu_torch.render.cameras import Camera
-    k = np.array([[f, 0.0, w / 2], [0.0, f, h / 2], [0.0, 0.0, 1.0]])
-    tgt = np.asarray(target, np.float64)
-    cams = []
-    for i, eye in enumerate(eyes):
-        eye = np.asarray(eye, np.float64)
-        z = (tgt - eye) / np.linalg.norm(tgt - eye)
-        x = np.cross(z, [0.0, 1.0, 0.0])
-        x = x / np.linalg.norm(x)
-        c2w = np.eye(4)
-        c2w[:3, 0], c2w[:3, 1], c2w[:3, 2], c2w[:3, 3] = \
-            x, np.cross(z, x), z, eye
-        cams.append(Camera.from_kw2c(f"cam{i}", w, h, k,
-                                     np.linalg.inv(c2w)))
-    return cams
-
-
-def fake_tracking_assets(path, n_frames=2, nx=5, ny=5):
-    """tests/test_train.py::make_fake_tracking_assets without JAX: the
-    tracking stage's params_*.npz, AO maps and UV obj under ``path``."""
-    import numpy as np
-    from PIL import Image
-    verts, faces = stage_cloth(nx=nx, ny=ny, y0=1.0, extent=0.5)
-    (path / "aomap").mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(0)
-    for t in range(n_frames):
-        np.savez(path / f"params_{t}.npz", vertices=verts + 0.01 * t,
-                 faces=faces,
-                 rgb_colors=rng.random((len(faces), 3)).astype(np.float32),
-                 cam_m=np.zeros((4, 3), np.float32),
-                 cam_c=np.zeros((4, 3), np.float32))
-        Image.fromarray((rng.random((64, 64)) * 255).astype(np.uint8)).save(
-            path / "aomap" / f"mesh_cloth_{t}.png")
-    with open(path / "uv.obj", "w") as f:
-        for v in verts:
-            f.write(f"v {v[0]} {v[1]} {v[2]}\n")
-        for i in range(len(verts)):
-            f.write(f"vt {rng.random():.4f} {rng.random():.4f}\n")
-        for fc in faces:
-            f.write(f"f {fc[0]+1}/{fc[0]+1} {fc[1]+1}/{fc[1]+1} "
-                    f"{fc[2]+1}/{fc[2]+1}\n")
-    return verts, faces
-
-
-def converge_tracking(make_cloth, lookat, device, work_cap=0) -> tuple:
-    """tests/test_convergence.py::test_tracking_converges_to_target_mesh
-    on the port: a 9 x 9 cloth tracked toward a bumped and shifted target
-    seen by 3 views (the GT rendered through the tile path), 250
-    iterations from the true colours; ``make_cloth`` and ``lookat`` build
-    the scene (the JAX suite's or their copies).  Returns (losses, the
-    mean vertex error before, after, a function that runs one more
-    iteration on the first view)."""
-    import numpy as np
-    import torch
-    from mpmavatar_tpu_torch.render import camera_arrays, rasterize
-    from mpmavatar_tpu_torch.render.geometry import \
-        covariance_from_scaling_rotation
-    from mpmavatar_tpu_torch.train import tracking as tt
-    verts, faces = make_cloth(nx=9, ny=9, y0=0.0, extent=0.7)
-    verts = (verts - np.array([1.0, 0.0, 1.0])).astype(np.float32)
-    tgt = verts.copy()
-    tgt[:, 1] += 0.10 * np.sin(np.pi * (tgt[:, 0] + 0.35) / 0.7) \
-        * np.sin(np.pi * (tgt[:, 2] + 0.35) / 0.7)
-    tgt[:, 0] += 0.04
-    colors = np.random.default_rng(0).random((len(faces), 3)).astype(
-        np.float32)
-    cams = lookat([(1.2, 1.5, 0.3), (-0.9, 1.6, 0.9), (0.2, 1.8, -1.1)])
-    gt = tt.init_tracking_params(tgt, faces, max_cams=len(cams),
-                                 device=device)
-    gt["rgb_colors"] = torch.as_tensor(colors, device=device)
-    rv = tt.params2rendervar(gt, torch.as_tensor(faces.astype(np.int64),
-                                                 device=device))
-    cov3d = covariance_from_scaling_rotation(rv["scales"], 1.0,
-                                             rv["rotations"])
-    batches = []
-    for i, cam in enumerate(cams):
-        out = rasterize(rv["means3d"], rv["colors"], rv["opacities"], cov3d,
-                        camera_arrays(cam, device),
-                        torch.zeros(3, device=device),
-                        width=cam.image_width, height=cam.image_height,
-                        tile_capacity=128)
-        if not float(out["alpha"].sum()) > 200:
-            raise AssertionError(f"camera {i} does not see the cloth")
-        batches.append({"cam": cam, "camera_idx": i,
-                        "rgb": out["render"].cpu().numpy(),
-                        "msk": out["alpha"].cpu().numpy()})
-    cfg = tt.TrackingConfig(iters_first=STAGE_TRACK_ITERS, tile_capacity=256,
-                            collision_weight=0.0, work_cap=work_cap)
-    tracker = tt.MeshTracker(verts, faces, cfg, max_cams=len(cams),
-                             scene_radius=4.0, device=device)
-    with torch.no_grad():
-        tracker.params["rgb_colors"].copy_(torch.as_tensor(colors))
-    body_v = np.full((8, 3), 5.0, np.float32)       # a far-away body
-    body_vn = np.zeros((8, 3), np.float32)
-    body_vn[:, 1] = 1.0
-    err0 = float(np.linalg.norm(verts - tgt, axis=1).mean())
-    losses = tracker.fit_frame(batches, body_v, body_vn, is_initial=True)
-    fitted = tracker.params["vertices"].detach().cpu().numpy()
-    first = tracker._device_batches(batches)[0]
-    body = [torch.as_tensor(a, device=device) for a in (body_v, body_vn)]
-    return (losses, err0,
-            float(np.linalg.norm(fitted - tgt, axis=1).mean()),
-            lambda: tracker.step(first, *body, True))
-
-
-def heldout_psnr(asset_dir, lookat, device, work_cap=0) -> tuple:
-    """tests/test_convergence.py::test_appearance_psnr_rises_on_heldout_view
-    on the port: the avatar of the tracking assets in ``asset_dir`` (the
-    JAX suite's make_fake_tracking_assets or its copy), opacity and scale
-    boosted, trained for 120 steps toward a second colour assignment seen
-    from 3 views (GT and held-out renders through the tile path, the
-    steps through the worklist compositor when ``work_cap`` > 0).
-    Returns (held-out PSNR before, after, the last loss, a function that
-    runs one more step on the first view)."""
-    import dataclasses
-    import numpy as np
-    import torch
-    from mpmavatar_tpu_torch.data import OptimizationParams
-    from mpmavatar_tpu_torch.render import camera_arrays
-    from mpmavatar_tpu_torch.render.avatar_model import load_mesh_avatar
-    from mpmavatar_tpu_torch.train.appearance import (make_optimizer,
-                                                      make_train_step,
-                                                      render_avatar_frame)
-    avatar, params = load_mesh_avatar(str(asset_dir),
-                                      str(asset_dir / "uv.obj"),
-                                      sh_degree=1, capacity_factor=1.0,
-                                      device=device)
-    avatar = dataclasses.replace(
-        avatar, verts_orig=avatar.verts_orig - np.array([1.0, 1.0, 1.0]),
-        _on_device={})
-    # the fresh avatar is nearly transparent at this scale: both sides
-    # boosted, as the JAX test does
-    with torch.no_grad():
-        params.splats.opacity.fill_(3.0)
-        params.splats.scaling.add_(np.log(6.0))
-    tgt_dc = np.random.default_rng(1).random(
-        tuple(params.splats.features_dc.shape)).astype(np.float32)
-    tgt = dataclasses.replace(params, splats=dataclasses.replace(
-        params.splats, features_dc=torch.as_tensor(tgt_dc, device=device)))
-    cams = lookat([(0.6, 0.85, 0.25), (-0.5, 0.9, 0.45), (0.2, 1.0, -0.55),
-                   (0.55, 0.8, -0.35)], w=80, h=80, f=150.0)
-    ao = avatar.tensor("ao_maps", device)[0]
-    bg = torch.zeros(3, device=device)
-
-    @torch.no_grad()
-    def render(p, cam):
-        return render_avatar_frame(avatar, p, avatar.select_verts(p, 0), ao,
-                                   cam, 0, 0, bg, False, tile_capacity=128)
-
-    views = []
-    for i, cam in enumerate(cams):
-        img, out = render(tgt, cam)
-        if not float(out["alpha"].sum()) > 200:
-            raise AssertionError(f"camera {i} does not see the avatar")
-        views.append((cam, img, out["alpha"]))
-    train_views, held = views[:3], views[3]
-
-    def psnr(p):
-        img, _ = render(p, held[0])
-        mse = float(torch.mean((torch.clamp(img, 0, 1) - held[1]) ** 2))
-        return -10.0 * np.log10(max(mse, 1e-10))
-
-    opt = OptimizationParams()
-    step = make_train_step(avatar, opt, make_optimizer(opt, 1.0, params), 0,
-                           False, tile_capacity=128, work_cap=work_cap)
-    def train(it):
-        cam, gt, msk = train_views[it % 3]
-        return step(params, 0, it % 3, camera_arrays(cam, device), gt, msk,
-                    ao, cam.image_width, cam.image_height)
-
-    psnr0 = psnr(params)
-    for it in range(STAGE_PSNR_ITERS):
-        loss, _ = train(it)
-    return psnr0, psnr(params), float(loss), lambda: train(0)
-
-
-def stages_path(dev, smi, check) -> dict:
+def stages_path(dev, check) -> dict:
     """Phase 17: the two convergence checks on the card, through K6/K7,
     and K6/K7 against their plain versions on one more iteration's and
     one more step's own worklists and cotangents; ``check`` is phase 4's
@@ -4312,20 +3089,17 @@ def stages_path(dev, smi, check) -> dict:
     import shutil
     from mpmavatar_tpu_torch.ops import _build
     from mpmavatar_tpu_torch.ops import composite as kcomp
-    t_phase = time.perf_counter()
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     losses, err0, err1, track_more = converge_tracking(
         stage_cloth, lookat_cams, dev, STAGE_WORK_CAP)
-    track_s = time.perf_counter() - t0
     launches_t = _build.launch_counts()
     print(f"stage check, tracking converges (tests/test_convergence.py's "
           f"scene, {STAGE_TRACK_ITERS} iterations, work_cap "
           f"{STAGE_WORK_CAP}): loss {losses[0]:.6f} -> {losses[-1]:.6f} "
           f"({losses[-1] / losses[0]:.4f} of the first, bound "
           f"{STAGE_LOSS_RATIO}), mean vertex error {err0:.6f} -> {err1:.6f} "
-          f"({err1 / err0:.4f}, bound {STAGE_ERR_RATIO}); {track_s:.2f} s; "
-          f"launches {launches_t}")
+          f"({err1 / err0:.4f}, bound {STAGE_ERR_RATIO}); launches "
+          f"{launches_t}")
     want = {kcomp.KERNEL: 2 * STAGE_TRACK_ITERS,
             kcomp.KERNEL_BWD: 2 * STAGE_TRACK_ITERS}
     if launches_t != want or not all(math.isfinite(v) for v in losses):
@@ -4343,10 +3117,8 @@ def stages_path(dev, smi, check) -> dict:
     try:
         fake_tracking_assets(work)
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
         psnr0, psnr1, loss, app_more = heldout_psnr(work, lookat_cams, dev,
                                                     STAGE_WORK_CAP)
-        app_s = time.perf_counter() - t0
         launches_a = _build.launch_counts()
         composite_pair(check, "stage-2", app_more, launches_a)
     finally:
@@ -4355,7 +3127,7 @@ def stages_path(dev, smi, check) -> dict:
           f"scene, {STAGE_PSNR_ITERS} stage-2 steps, work_cap "
           f"{STAGE_WORK_CAP}): {psnr0:.4f} -> {psnr1:.4f} dB (+"
           f"{psnr1 - psnr0:.4f}, bound +{STAGE_PSNR_GAIN}); last loss "
-          f"{loss:.6f}; {app_s:.2f} s; launches {launches_a}")
+          f"{loss:.6f}; launches {launches_a}")
     want = {kcomp.KERNEL: 2 * STAGE_PSNR_ITERS,
             kcomp.KERNEL_BWD: 2 * STAGE_PSNR_ITERS}
     if launches_a != want or not math.isfinite(loss):
@@ -4364,7 +3136,6 @@ def stages_path(dev, smi, check) -> dict:
     if not psnr1 > psnr0 + STAGE_PSNR_GAIN:
         raise AssertionError("stage check: stage 2 does not raise the "
                              "held-out PSNR")
-    print(f"phase 17 took {time.perf_counter() - t_phase:.1f} s on {smi}")
     return {k: launches_t.get(k, 0) + launches_a.get(k, 0)
             for k in set(launches_t) | set(launches_a)}
 
@@ -4392,12 +3163,10 @@ def main() -> int:
     from mpmavatar_tpu_torch.sim import bench_scene, cloth_drop
 
     dev = torch.device("cuda")
-    smi = nvidia_smi_line()
-    print(f"card: {smi}")
+    print(f"card: {nvidia_smi_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     OUT.mkdir(exist_ok=True)
-    t_start = time.perf_counter()
 
     # ---- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -4432,8 +3201,8 @@ def main() -> int:
     print(f"cloth drop: {NX}x{NX} cloth, E={E}, V={cfg.n_vertices}, P={P}, "
           f"G={GRID}^3, dt={DT}, {FRAMES}x{SUBSTEPS} substeps")
     y0 = float(state0.x[E:, 1].mean())
-    state, t, launches, ms_sub = drive("cloth_drop", solver, state0, model,
-                                       {}, FRAMES, SUBSTEPS, per_sub)
+    state, t, launches = drive("cloth_drop", solver, state0, model, {},
+                               FRAMES, SUBSTEPS, per_sub)
     n_sub = FRAMES * SUBSTEPS
     expect_fall = 9.8 * DT * DT * n_sub * (n_sub + 1) / 2.0
     fall = y0 - float(state.x[E:, 1].mean())
@@ -4451,7 +3220,7 @@ def main() -> int:
     print(f"path A (bench_scene --grid {GRID}): P={cfg_a.n_particles}, "
           f"{len(solver_a.colliders.mesh_colliders[0].faces)} collider "
           f"faces, {cfg_a.num_joint_v} + {cfg_a.num_joint_f} joint points")
-    state_a, t_a, launches_a, ms_a = drive(
+    state_a, _, launches_a = drive(
         "path_A", solver_a, state_a0, model_a, scene_a, FRAMES, SUBSTEPS,
         per_sub_a)
     pin_move = float((state_a.x[pins] - state_a0.x[pins]).abs().max())
@@ -4468,7 +3237,7 @@ def main() -> int:
     print(f"path B (bench_scene --grid {GRID_B} --sand {SAND_B}): "
           f"P={cfg_b.n_particles}")
     sand_y0 = float(state_b0.x[sand, 1].mean())
-    state_b, t_b, launches_b, ms_b = drive(
+    state_b, t_b, launches_b = drive(
         "path_B", solver_b, state_b0, model_b, scene_b, FRAMES, SUBSTEPS,
         per_sub_b)
     sand_fall = sand_y0 - float(state_b.x[sand, 1].mean())
@@ -4483,16 +3252,16 @@ def main() -> int:
     for body in (True, False):
         s_d, st_d, m_d = cloth_drop.build(NX, GRID, device=dev, body=body)
         sc_d = cloth_drop.body_scene(dev) if body else {}
-        t_d, t0 = 0.0, time.perf_counter()
+        t_d = 0.0
         for _ in range(DRAPE_SUBSTEPS // SUBSTEPS):
             st_d, t_d = s_d.frame(st_d, m_d, DT, SUBSTEPS, t_d, **sc_d)
         s_d.check_finite(st_d, f"drape (body={body})")
         depth[body] = sphere_depth(st_d.x[s_d.cfg.n_elements:],
                                    cloth_drop.BODY_CENTER, cloth_drop.BODY_R)
-        print(f"drape, {'with' if body else 'without'} the body collider: "
-              f"{DRAPE_SUBSTEPS} substeps in {time.perf_counter() - t0:.2f}"
-              f" s; deepest cloth vertex {depth[body]:.5f} inside the "
-              f"sphere; cloth y range [{float(st_d.x[:, 1].min()):.4f}, "
+        print(f"drape, {'with' if body else 'without'} the body collider, "
+              f"{DRAPE_SUBSTEPS} substeps: deepest cloth vertex "
+              f"{depth[body]:.5f} inside the sphere; cloth y range "
+              f"[{float(st_d.x[:, 1].min()):.4f}, "
               f"{float(st_d.x[:, 1].max()):.4f}]")
         if body:
             changed, covered = mesh_branch_cells(s_d, st_d, m_d, sc_d, t_d)
@@ -4881,16 +3650,16 @@ def main() -> int:
         if _build.launch_counts():
             raise AssertionError(f"{name}: its backward launched "
                                  f"{_build.launch_counts()}")
-        busy, _, rows = profile_device(run)
+        rows = profile_device(run)
+        busy_ms = 1e-3 * sum(r[1] for r in rows)
         # on the entry of the shape it ran at: the kernel's first, or the
         # further shape checked under ``label``
         entry = results[name] if label is None else next(
             e for e in results[name]["other_shapes"] if e["label"] == label)
-        entry.update(bwd_ms=1e3 * busy, bwd_eager_ms=eager)
+        entry.update(bwd_ms=busy_ms, bwd_eager_ms=eager)
         print(f"{label or name} backward (autograd over the plain version): "
-              f"device "
-              f"{1e3 * busy:.4f} ms in {sum(r[2] for r in rows)} kernels, "
-              f"eager {eager:.4f} ms")
+              f"device {busy_ms:.4f} ms in {sum(r[2] for r in rows)} "
+              f"kernels, eager {eager:.4f} ms")
 
     backward_check("cloth_stress", kstress.cloth_stress, k1_in,
                    (0, 1, 2, 4, 5, 6, 7, 8))
@@ -4918,7 +3687,7 @@ def main() -> int:
     r33 = lambda s: linalg.qr3_pos(s.d)[1][:, 2, 2].cpu()
     d_err = lambda a, b, keep=slice(None): float(
         (a.d.cpu() - b.d)[keep].abs().max()) if b.d[keep].numel() else 0.0
-    t_cpu, n_cpu, sound, wrong = 0.0, 0, [], []
+    sound, wrong = [], []
     for seed in PATH_SEEDS:
         g = torch.Generator(device=dev).manual_seed(1000 + seed)
         a = dataclasses.replace(state, v=state.v + 0.05 * torch.randn(
@@ -4936,11 +3705,9 @@ def main() -> int:
             crossed |= (ra > 1.0) != (rb > 1.0)
             crossed_c |= (r33(c) > 1.0) != (rb > 1.0)
             short = b
-            t_c = time.perf_counter()
             b, t_next = solver_cpu.frame(b, model_cpu, DT, 1, t_s)
             c = solver_cpu.frame(c, model_cpu, DT, 1, t_s)[0]
             w = solver_cpu.frame(w, model_wrong, DT, 1, t_s)[0]
-            t_cpu, n_cpu = t_cpu + time.perf_counter() - t_c, n_cpu + 3
             a_next = solver.frame(a, model, DT, 1, t_s)[0]
             if seed == PATH_SEEDS[0]:
                 # one substep of each path from the same state
@@ -4984,7 +3751,6 @@ def main() -> int:
         raise AssertionError(f"D_TOL no longer separates sound runs (up to "
                              f"{max(sound):.3e}) from a wrong path (from "
                              f"{min(wrong):.3e})")
-    print(f"plain path on the CPU: {1e3 * t_cpu / n_cpu:.1f} ms/substep")
 
     # the contact scene: outward-wound body (the bench's sphere winds
     # inward, and an inward-wound collider lets a falling cloth through)
@@ -5044,39 +3810,38 @@ def main() -> int:
           f"{min(readings['friction 0']['v'] + readings['no mover']['v']):.3e})")
 
     # ---- 6. the render path -------------------------------------------
-    render, big_call = render_path(dev, check)
+    render_launches, big_call = render_path(dev, check)
 
     # ---- 7. the train path --------------------------------------------
-    train_ms, train_launches = train_path(dev, check, big_call)
+    train_launches = train_path(dev, check, big_call)
 
     # ---- 8. the differentiated substep ----------------------------------
-    grad_ms = grad_path(dev, solver, state0, model, solver_cpu, model_cpu,
-                        per_sub)
+    grad_path(dev, solver, state0, model, solver_cpu, model_cpu, per_sub)
 
     # ---- 9. the material train step -------------------------------------
-    mat_ms, mat_launches = material_path(dev, per_sub_a)
+    mat_launches = material_path(dev, per_sub_a)
 
     # ---- 10. the posed body ---------------------------------------------
-    pose_ms, pose_launches = posed_body_path(dev, smi, scene_p, body_p,
-                                             body_p_cpu, per_sub_a)
+    pose_launches = posed_body_path(dev, scene_p, body_p, body_p_cpu,
+                                    per_sub_a)
 
     # ---- 11. the stage-2 and stage-4 tools ------------------------------
     import shutil
     work24 = REPO / "output" / "chip_smoke_stage24"
     shutil.rmtree(work24, ignore_errors=True)
     try:
-        cli_ms, cli_launches = stage24_path(dev, smi, work24)
+        cli_launches = stage24_path(dev, work24)
 
         # ---- 12. the zero-shot demo ------------------------------------
         per_sub_demo = dict(per_sub, splat=1, sand_stress=1, windows=1)
-        demo_ms, demo_launches = demo_path(
-            dev, smi, {"p2g": p2g_check, "splat": splat_check,
-                       "sand": sand_check, "windows": windows_check},
+        demo_launches = demo_path(
+            dev, {"p2g": p2g_check, "splat": splat_check,
+                  "sand": sand_check, "windows": windows_check},
             per_sub_demo)
 
         # ---- 13. stage-1 tracking on phase 11's capture ----------------
-        track_ms, track_launches = tracking_path(
-            dev, smi, work24 / "capture", work24, check)
+        track_launches = tracking_path(dev, work24 / "capture", work24,
+                                       check)
     finally:
         shutil.rmtree(work24, ignore_errors=True)
 
@@ -5086,30 +3851,15 @@ def main() -> int:
                             full_surf))
 
     # ---- 15. the production recovery ------------------------------------
-    rec_s, rec_launches = recovery_path(dev, per_sub_a)
+    rec_launches = recovery_path(dev, per_sub_a)
 
     # ---- 16. the drivers: the tracking bench, the one-line bench --------
-    bench_tile_ms, bench_work_ms, bench_launches, drv_launches = \
-        drivers_path(dev, smi, check, per_sub_a, per_sub_b)
+    bench_launches, drv_launches = drivers_path(dev, check, per_sub_a,
+                                                per_sub_b)
 
     # ---- 17. the stage-level convergence checks -------------------------
-    stage_launches = stages_path(dev, smi, check)
+    stage_launches = stages_path(dev, check)
 
-    print(f"paths: cloth drop {ms_sub:.4f}, path A {ms_a:.4f}, path B "
-          f"{ms_b:.4f} ms/substep, differentiated cloth drop {grad_ms:.4f} "
-          f"ms/substep; render "
-          + ", ".join(f"{name} {ms:.4f}" for name, (ms, _) in render.items())
-          + f" ms/frame; train step {train_ms:.4f} ms; material train step "
-          f"{mat_ms:.4f} ms; posed body {pose_ms:.4f} ms/substep; stage-2 "
-          f"CLI step {cli_ms:.4f} ms; demo {demo_ms:.4f} ms/substep; "
-          f"tracking {track_ms:.4f} ms/iteration; sharded frame "
-          f"{md['sharded_frame'][0]:.4f} ms/substep, sharded material step "
-          f"{md['sharded_material_step'][0]:.4f} ms, DP stage-2 step "
-          f"{md['dp_step'][0]:.4f} ms; recovery {rec_s:.2f} s/step; "
-          f"tracking bench {bench_tile_ms:.4f} (tile path), "
-          f"{bench_work_ms:.4f} (worklist) ms/iteration on {smi}; "
-          f"chip_smoke ran "
-          f"{time.perf_counter() - t_start:.1f} s after start-up")
     # the graphed paths (cloth drop, A, B, posed body, demo) give the
     # launches of their PROFILE_SUBSTEPS profiled substeps' device trace
     for entry in results.values():
@@ -5118,7 +3868,7 @@ def main() -> int:
             "path_A": launches_a.get(entry["name"], 0),
             "path_B": launches_b.get(entry["name"], 0),
             **{f"render_{name}": counts.get(entry["name"], 0)
-               for name, (_, counts) in render.items()},
+               for name, counts in render_launches.items()},
             "train_step": train_launches.get(entry["name"], 0),
             "material_train_step": mat_launches.get(entry["name"], 0),
             "posed_body": pose_launches.get(entry["name"], 0),
@@ -5126,12 +3876,11 @@ def main() -> int:
             "demo": demo_launches.get(entry["name"], 0),
             "tracking": track_launches.get(entry["name"], 0),
             **{path: counts.get(entry["name"], 0)
-               for path, (_, counts) in md.items()},
+               for path, counts in md.items()},
             "recover": rec_launches.get(entry["name"], 0),
             "tracking_bench": bench_launches.get(entry["name"], 0),
             "driver": drv_launches.get(entry["name"], 0),
             "stages": stage_launches.get(entry["name"], 0)}
-    print(smi)
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

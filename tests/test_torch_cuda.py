@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import chip_fixtures
 
 from mpmavatar_tpu_torch.core import colliders as tcol
 from mpmavatar_tpu_torch.core import stepping
@@ -464,8 +464,8 @@ def _splat_shape(dev, shape):
     if shape.startswith("tails"):
         # 3 n^3 points: enough for the tile kernel, or (", few") not
         n = int(np.ceil((ksplat.TILE_MIN_POINTS / 3) ** (1 / 3)))
-        pts, vals = chip_smoke.tail_lattice(n if shape == "tails" else 6,
-                                            128)
+        pts, vals = chip_fixtures.tail_lattice(
+            n if shape == "tails" else 6, 128)
         return torch.as_tensor(pts, device=dev), torch.as_tensor(
             vals, device=dev), 128
     pts, vals = _torso_faces(dev)
@@ -482,11 +482,11 @@ def test_splat_kernel_tile_and_direct_branches(dev, shape):
     """K4 against its plain version on the posed body's 20,736 faces in
     mesh order (most warps' stencil boxes fit their shared-memory tile),
     the same faces shuffled (every warp adds straight into the grid), on
-    stencil tails (chip_smoke.tail_lattice) in the tiles, and on fewer
+    stencil tails (chip_fixtures.tail_lattice) in the tiles, and on fewer
     tails than ops/splat.py's TILE_MIN_POINTS (the kernel with one thread
     per point and node): each output within max(1e-5, n_max 2^-23) of its
     largest entry (float sums in another order, n_max the most points on
-    one base cell), and as K5 reads it (chip_smoke.splat_coverage): the
+    one base cell), and as K5 reads it (chip_fixtures.splat_coverage): the
     covered cells (w > 1e-15) the same but at cells whose plain weight
     lies within 2x of 1e-15, acc / w and the unit normal on the cells both
     cover within the same tolerance."""
@@ -503,10 +503,10 @@ def test_splat_kernel_tile_and_direct_branches(dev, shape):
     else:      # the lattice's runs of sites: a third of its warps span two
         assert len(pts) >= ksplat.TILE_MIN_POINTS
         assert tile > (direct if shape == "torso" else 0)
-    tol = max(1e-5, chip_smoke.splat_n_max(pts, g, True) * 2.0 ** -23)
+    tol = max(1e-5, chip_fixtures.splat_n_max(pts, g, True) * 2.0 ** -23)
     for a, b in zip(out, ref):
         assert _rel_err(a, b) <= tol
-    cover = chip_smoke.splat_coverage(out, ref, vals)
+    cover = chip_fixtures.splat_coverage(out, ref, vals)
     assert cover["differ"] == cover["threshold"]
     assert cover["velocity"] <= tol and cover["normal"] <= tol
 
@@ -878,7 +878,8 @@ def nccl_group():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: NCCL runs on the card")
     dist.init_process_group("nccl", init_method="tcp://localhost:"
-                            f"{chip_smoke.free_port()}", rank=0, world_size=1)
+                            f"{chip_fixtures.free_port()}", rank=0,
+                            world_size=1)
     yield dist.group.WORLD
     dist.destroy_process_group()
 
@@ -1460,12 +1461,12 @@ def test_avatar_checkpoint_round_trip_on_the_card(dev, tmp_path):
 
 
 def test_demo_cut_scene_goes_through_the_kernels_and_matches_the_cpu(dev):
-    """chip_smoke's cut demo scene (a 48 x 48 skirt, 3,000 sand held by
+    """chip_smoke.py's cut demo scene (a 48 x 48 skirt, 3,000 sand held by
     live release windows, the body and the chair in contact, 64^3): 10
     substeps launch K1, K2, K5, K3, K4 (the collider), K8 and the release
     windows once each and match the CPU plain path (x 2e-5, v 1e-3)."""
-    s_k, st_k, m_k, in_k = chip_smoke.demo_cut_scene(dev, True)
-    s_c, _, m_c, in_c = chip_smoke.demo_cut_scene("cpu", True)
+    s_k, st_k, m_k, in_k = chip_fixtures.demo_cut_scene(dev, True)
+    s_c, _, m_c, in_c = chip_fixtures.demo_cut_scene("cpu", True)
     g = torch.Generator(device=dev).manual_seed(4)
     a0 = dataclasses.replace(st_k, v=st_k.v + 0.05 * torch.randn(
         st_k.v.shape, generator=g, device=dev))

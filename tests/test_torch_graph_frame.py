@@ -5,7 +5,7 @@ float32 sequence, ``p2g2p`` with its time as a device scalar against the
 same substep with a host float, which frames take the graph and which
 the eager loop, what the graph's key holds, the launch counts of a
 capture and its replays, the spans of a frame that captures (under a
-stand-in graph), ``chip_smoke.py``'s reading of a device trace's
+stand-in graph), ``chip_fixtures.py``'s reading of a device trace's
 launches, and the CPU frame as the eager loop of ``p2g2p``.
 
 On the card (marked ``cuda``, skipped without one): the graph frame
@@ -349,11 +349,11 @@ def test_a_capturing_frame_spans_one_substep_per_substep(monkeypatch):
 
 @pytest.mark.parametrize("drop", [None, "windows", "one splat"])
 def test_chip_smoke_counts_the_kernels_a_device_trace_ran(drop):
-    """``chip_smoke.check_traced`` reads the port's kernels from a
+    """``chip_fixtures.check_traced`` reads the port's kernels from a
     profile's rows (the templated splats under one name, PyTorch's own
     kernels and copies left out) and raises when the trace lacks a
     launch that the per-substep counts expect."""
-    import chip_smoke
+    import chip_fixtures
     n = 20
     rows = [("(anonymous namespace)::p2g_kernel(float const*, int)", 9.0, n),
             ("void (anonymous namespace)::splat_direct_kernel<6>(float "
@@ -369,11 +369,11 @@ def test_chip_smoke_counts_the_kernels_a_device_trace_ran(drop):
                      1.0, n))
     per_sub = {"p2g": 1, "splat": 2, "sand_stress": 1, "windows": 1}
     if drop is None:
-        assert chip_smoke.check_traced("demo", rows, per_sub, n) == {
+        assert chip_fixtures.check_traced("demo", rows, per_sub, n) == {
             "p2g": n, "splat": 2 * n, "sand_stress": n, "windows": n}
     else:
         with pytest.raises(AssertionError):
-            chip_smoke.check_traced("demo", rows, per_sub, n)
+            chip_fixtures.check_traced("demo", rows, per_sub, n)
 
 
 def test_time_goes_by_value_or_by_pointer():

@@ -15,7 +15,7 @@ import torch
 from test_torch_core import t
 from test_torch_cuda import _torso_faces
 
-import chip_smoke
+import chip_fixtures
 
 from mpmavatar_tpu.core import stepping as jstep
 from mpmavatar_tpu.core import types as jtypes
@@ -120,23 +120,23 @@ def _as_torch(out):
 
 
 def test_splat_plain_reads_stencil_tails_as_jax():
-    """Stencil tails (chip_smoke.tail_lattice: cells that only tails
+    """Stencil tails (chip_fixtures.tail_lattice: cells that only tails
     reach, weights down to ~1e-19, thousands between 1e-12 and 1e-6 and
     a dozen within 2x of K5's coverage threshold 1e-15): the plain version
     against rasterize_to_grid as K5 reads the fields
-    (chip_smoke.splat_coverage): the covered cells (w > 1e-15) the same
+    (chip_fixtures.splat_coverage): the covered cells (w > 1e-15) the same
     but at cells whose reference weight lies within 2x of 1e-15, and on the
     cells both cover acc / w within TOL_SCATTER of max |velocity| and the
     unit normal within TOL_SCATTER times its conditioning, w / |acc_n|
     (each a ratio of two float32 sums of at most 3 terms)."""
-    pts, vals = chip_smoke.tail_lattice(8, G)
+    pts, vals = chip_fixtures.tail_lattice(8, G)
     ref = _as_torch(jstep.rasterize_to_grid(_cfg(), jnp.asarray(pts),
                                             jnp.asarray(vals), G ** 3))
     out = tsplat.splat(t(pts), t(vals), G, G / 2.0)
     w_ref = ref[1]
     assert bool(((w_ref > 0) & (w_ref < 1e-12)).any())
     assert int(((w_ref >= 1e-12) & (w_ref < 1e-6)).sum()) >= 100
-    cover = chip_smoke.splat_coverage(out, ref, t(vals))
+    cover = chip_fixtures.splat_coverage(out, ref, t(vals))
     assert cover["differ"] == cover["threshold"]
     assert cover["velocity"] <= TOL_SCATTER
     assert cover["normal"] <= TOL_SCATTER
@@ -158,7 +158,7 @@ def test_splat_plain_does_not_depend_on_point_order(shape):
         pts, vals = _torso_faces("cpu")
         g = 128
     else:
-        pts, vals = (t(a) for a in chip_smoke.tail_lattice(8, G))
+        pts, vals = (t(a) for a in chip_fixtures.tail_lattice(8, G))
         g = G
     perm = torch.randperm(len(pts), generator=torch.Generator().manual_seed(0))
     ref = tsplat.splat_plain(pts, vals, g, g / 2.0)
@@ -169,6 +169,6 @@ def test_splat_plain_does_not_depend_on_point_order(shape):
     tol = n_terms * 2.0 ** -23
     for a, b in zip(out, ref):
         assert _rel(a, b) <= tol
-    cover = chip_smoke.splat_coverage(out, ref, vals)
+    cover = chip_fixtures.splat_coverage(out, ref, vals)
     assert cover["differ"] == cover["threshold"]
     assert cover["velocity"] <= tol and cover["normal"] <= tol

@@ -14,8 +14,8 @@ exists to produce, not agreement with JAX step by step.
 - the cloth drop settles on the floor (tests/test_solver.py:37-48);
 - the animated collider drives the cloth
   (tests/test_demo_playback.py:70-101).
-The first two run ``chip_smoke.converge_tracking`` and
-``chip_smoke.heldout_psnr``, which ``chip_smoke.py`` phase 17 runs on the
+The first two run ``chip_fixtures.converge_tracking`` and
+``chip_fixtures.heldout_psnr``, which ``chip_smoke.py`` phase 17 runs on the
 card through K6/K7 with JAX-free copies of the scene builders; the
 non-slow tests here hold those copies to the JAX suite's builders.
 
@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
+import chip_fixtures
 from bench import build_body_sphere
 from test_convergence import _lookat_cams
 from test_inverse_recovery import N_FRAMES, TRUTH, _make_problem
@@ -51,14 +51,14 @@ torch.set_num_threads(1)
 def test_scene_copies_match_the_jax_builders(tmp_path):
     for kw in ({}, dict(nx=9, ny=9, y0=0.0, extent=0.7),
                dict(nx=6, ny=4, y0=1.2, extent=0.5)):
-        v, f = chip_smoke.stage_cloth(**kw)
+        v, f = chip_fixtures.stage_cloth(**kw)
         jv, jf = make_cloth(**kw)
         assert v.dtype == jv.dtype and f.dtype == jf.dtype
         np.testing.assert_array_equal(v, jv)
         np.testing.assert_array_equal(f, jf)
     eyes = [(1.2, 1.5, 0.3), (-0.9, 1.6, 0.9), (0.2, 1.8, -1.1)]
     for kw in ({}, dict(w=80, h=80, f=150.0)):
-        for c, j in zip(chip_smoke.lookat_cams(eyes, **kw),
+        for c, j in zip(chip_fixtures.lookat_cams(eyes, **kw),
                         _lookat_cams(eyes, **kw)):
             assert (c.image_width, c.image_height) == \
                 (j.image_width, j.image_height)
@@ -72,7 +72,7 @@ def test_scene_copies_match_the_jax_builders(tmp_path):
 def test_fake_tracking_assets_copy_matches_jax(tmp_path):
     ours, ref = tmp_path / "ours", tmp_path / "ref"
     ref.mkdir()
-    chip_smoke.fake_tracking_assets(ours, n_frames=3)
+    chip_fixtures.fake_tracking_assets(ours, n_frames=3)
     make_fake_tracking_assets(ref, n_frames=3)
     names = sorted(p.relative_to(ref) for p in ref.rglob("*") if p.is_file())
     assert names == sorted(p.relative_to(ours) for p in ours.rglob("*")
@@ -90,7 +90,7 @@ def test_fake_tracking_assets_copy_matches_jax(tmp_path):
 
 @pytest.mark.slow
 def test_tracking_converges_to_target_mesh():
-    losses, err0, err1, _ = chip_smoke.converge_tracking(
+    losses, err0, err1, _ = chip_fixtures.converge_tracking(
         make_cloth, _lookat_cams, "cpu")
     assert np.isfinite(losses).all()
     assert losses[-1] < 0.5 * losses[0], (losses[0], losses[-1])
@@ -100,8 +100,8 @@ def test_tracking_converges_to_target_mesh():
 @pytest.mark.slow
 def test_appearance_psnr_rises_on_heldout_view(tmp_path):
     make_fake_tracking_assets(tmp_path)
-    psnr0, psnr1, loss, _ = chip_smoke.heldout_psnr(tmp_path, _lookat_cams,
-                                                    "cpu")
+    psnr0, psnr1, loss, _ = chip_fixtures.heldout_psnr(
+        tmp_path, _lookat_cams, "cpu")
     assert np.isfinite(loss)
     assert psnr1 > psnr0 + 3.0, (psnr0, psnr1)
 
